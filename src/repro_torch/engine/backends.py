@@ -1,0 +1,222 @@
+"""How a plan's combines execute.
+
+Two backends, named as in the JAX package:
+
+  * ``xla_segment`` — masked ``scatter_reduce_`` (amin / amax / sum) into an
+    identity-filled buffer;
+  * ``pallas_tiled`` — the destination-tile kernels of
+    ``kernels/temporal_edgemap.py``.  It runs the int32 min-combine of a
+    scan-method, out-direction view; every other combine takes the segment
+    path, so the backend is a performance choice, never a correctness one.
+
+Segment ids are prepared once per view (:func:`segments_for`): the int64
+scatter index, and for the tiled kernels the layout gather and each slot's
+local destination.  A fixpoint round then pays only the value gathers.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.engine.plan import AccessPlan
+from repro_torch.kernels.temporal_edgemap import INT_INF, segment_min_tiles
+
+INT_NEG_INF = -(2**31)
+_REDUCE = {"min": "amin", "max": "amax", "sum": "sum"}
+
+
+def _identity(combine: str, dtype: torch.dtype):
+    floating = dtype.is_floating_point
+    if combine == "min":
+        return float("inf") if floating else INT_INF
+    if combine == "max":
+        return float("-inf") if floating else INT_NEG_INF
+    if combine == "sum":
+        return 0
+    raise ValueError(combine)
+
+
+class TileGather(NamedTuple):
+    """A view's segment ids in the plan's tile layout order.  Padding slots
+    index one past the view's end, where the gathers append the identity."""
+
+    index: torch.Tensor      # i64[Ep] view slot of each layout slot (K on padding)
+    dst_local: torch.Tensor  # i32[Ep] segment id within its tile (0 on padding)
+
+
+class Segments(NamedTuple):
+    """Segment ids prepared once per view."""
+
+    ids: torch.Tensor                 # i64[K]
+    tiles: Optional[TileGather] = None
+
+
+def _padded(values: torch.Tensor, fill) -> torch.Tensor:
+    """``values`` [..., K] with one ``fill`` slot appended on the last axis."""
+    pad = values.new_full(values.shape[:-1] + (1,), fill)
+    return torch.cat([values, pad], dim=-1)
+
+
+def _tile_gather(plan: AccessPlan, segment_ids: torch.Tensor) -> TileGather:
+    perm = plan.layout_perm
+    index = torch.where(perm >= 0, perm.long(), segment_ids.shape[0])
+    seg = _padded(segment_ids, 0)[index].to(torch.int32)
+    dst_local = seg - (seg // plan.tile_v) * plan.tile_v
+    return TileGather(index, dst_local.contiguous())
+
+
+def segments_for(plan: Optional[AccessPlan], segment_ids, *,
+                 use_layout: bool = False) -> Segments:
+    """Prepare ``segment_ids`` for :func:`combine_for_plan`.  The layout
+    part is built for a ``pallas_tiled`` plan when ``use_layout`` asserts
+    the ids are in the edge order the plan's layout was built from (scan
+    view, reduce into destination); whether a combine may then run the
+    kernel is :meth:`PallasTiledBackend._supports`'s decision."""
+    if isinstance(segment_ids, Segments):
+        return segment_ids
+    ids = segment_ids.long()
+    tiles = None
+    if plan is not None and use_layout and plan.backend == "pallas_tiled":
+        tiles = _tile_gather(plan, ids)
+    return Segments(ids, tiles)
+
+
+def segment_combine(values, segment_ids, num_segments: int, combine: str,
+                    mask=None):
+    """Masked segment-reduce of ``values`` [K, ...] by ``segment_ids`` [K];
+    invalid lanes contribute the identity, empty segments hold it."""
+    ident = _identity(combine, values.dtype)
+    ids = segment_ids.long()
+    if mask is not None:
+        m = mask.reshape(mask.shape + (1,) * (values.dim() - mask.dim()))
+        values = torch.where(m, values, ident)
+        ids = torch.where(mask, ids, 0)
+    if values.dim() > 1:
+        ids = ids.reshape(ids.shape + (1,) * (values.dim() - 1)).expand_as(values)
+    out = torch.full((num_segments,) + tuple(values.shape[1:]), ident,
+                     dtype=values.dtype, device=values.device)
+    return out.scatter_reduce_(0, ids, values, _REDUCE[combine], include_self=True)
+
+
+def segment_combine_windows(values, segment_ids, num_segments: int,
+                            combine: str, masks=None):
+    """Batched masked segment-reduce over a shared edge set: ``values``
+    [W, K, ...], ``masks`` [W, K], ``segment_ids`` [K] shared.  Returns
+    [W, num_segments, ...] from one scatter over a flattened window axis."""
+    W, K = values.shape[:2]
+    rows = torch.arange(W, device=values.device)[:, None] * num_segments
+    ids = (segment_ids.long()[None, :] + rows).expand(W, K).reshape(-1)
+    flat = values.reshape((W * K,) + tuple(values.shape[2:]))
+    out = segment_combine(flat, ids, W * num_segments, combine,
+                          mask=None if masks is None else masks.reshape(-1))
+    return out.reshape((W, num_segments) + tuple(values.shape[2:]))
+
+
+class PallasTiledBackend:
+    """The destination-tile kernels, selected by the plan's layout (the
+    name is the JAX package's, so plans and cache keys compare equal).
+
+    ``segment_ids`` must be in the edge order the layout was built from
+    (the graph's native order; callers gate on that)."""
+
+    name = "pallas_tiled"
+
+    def _supports(self, plan, values, num_segments, op) -> bool:
+        if plan is None or plan.layout_perm.shape[0] == 0:
+            return False
+        if plan.n_edges and values.shape[0] != plan.n_edges:
+            return False
+        if num_segments > plan.n_tiles * plan.tile_v:
+            return False
+        # A "sum" takes the segment path until the tiled spmm kernel (K3)
+        # is ported.
+        return op == "min" and values.dim() == 1 and values.dtype == torch.int32
+
+    def combine(self, plan, values, segment_ids, num_segments, op, mask=None):
+        seg = segments_for(plan, segment_ids, use_layout=True)
+        if not self._supports(plan, values, num_segments, op):
+            return segment_combine(values, seg.ids, num_segments, op, mask=mask)
+        return self._combine_min(plan, values, seg.tiles, num_segments, mask)
+
+    def combine_windows(self, plan, values, segment_ids, num_segments, op,
+                        masks=None):
+        seg = segments_for(plan, segment_ids, use_layout=True)
+        if not self._supports(plan, values[0], num_segments, op):
+            return segment_combine_windows(values, seg.ids, num_segments, op,
+                                           masks=masks)
+        return self._combine_min_windows(plan, values, seg.tiles, num_segments,
+                                         masks)
+
+    def _combine_min(self, plan, values, tiles: TileGather, num_segments, mask):
+        cand = values if mask is None else torch.where(mask, values, INT_INF)
+        cand_g = _padded(cand, INT_INF)[tiles.index]
+        out = segment_min_tiles(
+            tiles.dst_local, cand_g, plan.layout_block_tile, plan.n_tiles,
+            tile_v=plan.tile_v, block_e=plan.block_e,
+        )
+        return out.reshape(-1)[:num_segments]
+
+    def _combine_min_windows(self, plan, values, tiles: TileGather,
+                             num_segments, masks):
+        """All W windows in ONE K1 launch (W is the kernel's grid y)."""
+        cand = values if masks is None else torch.where(masks, values, INT_INF)
+        cand_g = _padded(cand, INT_INF)[:, tiles.index]
+        out = segment_min_tiles(
+            tiles.dst_local, cand_g, plan.layout_block_tile, plan.n_tiles,
+            tile_v=plan.tile_v, block_e=plan.block_e,
+        )
+        return out.reshape(values.shape[0], -1)[:, :num_segments]
+
+
+_TILED = PallasTiledBackend()
+
+
+def combine_for_plan(
+    plan: Optional[AccessPlan],
+    values,
+    segment_ids,
+    num_segments: int,
+    op: str,
+    mask=None,
+    *,
+    use_layout: bool = False,
+):
+    """Plan-directed combine.  ``segment_ids`` is a tensor or prepared
+    :class:`Segments`; ``use_layout`` (for a raw tensor) asserts the ids are
+    in the layout's edge order, and only then may the tiled kernels run."""
+    seg = segments_for(plan, segment_ids, use_layout=use_layout)
+    if seg.tiles is not None:
+        return _TILED.combine(plan, values, seg, num_segments, op, mask=mask)
+    return segment_combine(values, seg.ids, num_segments, op, mask=mask)
+
+
+def combine_windows_for_plan(
+    plan: Optional[AccessPlan],
+    values,           # [W, K, ...]
+    segment_ids,      # [K] shared across windows, or Segments
+    num_segments: int,
+    op: str,
+    masks=None,       # [W, K]
+    *,
+    use_layout: bool = False,
+):
+    """Batched plan-directed combine: W reductions over one shared edge set,
+    returning [W, num_segments, ...]; same eligibility as
+    :func:`combine_for_plan`."""
+    seg = segments_for(plan, segment_ids, use_layout=use_layout)
+    if seg.tiles is not None:
+        return _TILED.combine_windows(plan, values, seg, num_segments, op,
+                                      masks=masks)
+    return segment_combine_windows(values, seg.ids, num_segments, op, masks=masks)
+
+
+__all__ = [
+    "PallasTiledBackend",
+    "Segments",
+    "segments_for",
+    "segment_combine",
+    "segment_combine_windows",
+    "combine_for_plan",
+    "combine_windows_for_plan",
+]

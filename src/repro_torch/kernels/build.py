@@ -1,0 +1,100 @@
+"""Build the CUDA kernels of ``csrc/`` with ``nvcc`` and bind them with
+``ctypes``.
+
+Each source compiles, at first use, into a shared library with a plain C
+interface under ``build/`` at the repository root.  The library's file name
+carries a hash of its source, so an edited source is never served by a
+stale build.  Nothing here runs at import time: the CPU tests import every
+module on machines without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of every kernel entry point, by source stem.
+SIGNATURES = {
+    "temporal_edgemap": {
+        # dst_local, cand, block_tile, out, n_blocks, n_tiles, tile_v,
+        # block_e, n_windows, stream
+        "segment_min_tiles_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # dst_local, arr, ts, te, valid, block_tile, out, n_blocks, n_tiles,
+        # tile_v, block_e, ta, tb, strict, stream
+        "temporal_relax_min_tiles_launch": [_P] * 7 + [_I] * 7 + [_P],
+    },
+}
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+BUILD_LOG: dict = {}  # stem -> nvcc's output (ptxas register/smem report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def library_path(stem: str) -> pathlib.Path:
+    src = (CSRC / f"{stem}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{stem}-{digest}.so"
+
+
+def compile_source(stem: str) -> pathlib.Path:
+    """Compile ``csrc/<stem>.cu`` unless its library is already built.
+    The compile writes a temporary file and renames it into place, so
+    concurrent processes never load a half-written library."""
+    out = library_path(stem)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{stem}.cu")],
+            capture_output=True, text=True, check=False)
+        BUILD_LOG[stem] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {stem}.cu:\n{BUILD_LOG[stem]}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded, signature-bound library of ``csrc/<stem>.cu``."""
+    with _LOCK:
+        lib = _LIBS.get(stem)
+        if lib is None:
+            lib = ctypes.CDLL(str(compile_source(stem)))
+            for name, argtypes in SIGNATURES[stem].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIBS[stem] = lib
+        return lib
+
+
+__all__ = ["library", "compile_source", "library_path", "BUILD_DIR", "BUILD_LOG"]

@@ -1,0 +1,61 @@
+"""The port's boundaries: it imports neither JAX nor the JAX package, and
+its entry points never fall back to the CPU on their own."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core.temporal_graph import from_edges
+from repro_torch.data import generators as tgen
+from repro_torch.device import resolve_device
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core.algorithms, repro_torch.serve\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.data, repro_torch.engine.fixpoint\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": os.path.abspath(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=False)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: from_edges([0, 1], [1, 2], [0, 5]),
+    lambda: tgen.power_law_temporal_graph(20, 50),
+    lambda: tgen.transit_temporal_graph(20, 50),
+    lambda: tgen.synthetic_temporal_graph(20, 50),
+    lambda: resolve_device(),
+    lambda: repro_torch.frontier_from_sources(5, [1, 3]),
+])
+def test_entry_points_need_a_card_or_an_explicit_device(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def test_explicit_cpu_device_and_downstream_follows():
+    g = from_edges(np.array([0, 1]), np.array([1, 2]), np.array([0, 5]),
+                   np.array([1, 6]), device="cpu")
+    assert g.device == torch.device("cpu")
+    idx = repro_torch.build_tger(g, degree_cutoff=1)
+    plan = repro_torch.plan_query(g, idx, (0, 10), backend="pallas_tiled")
+    assert idx.perm_by_start.device == g.device
+    assert plan.layout_perm.device == g.device
+    assert resolve_device("cpu") == torch.device("cpu")
+    f = repro_torch.frontier_from_sources(3, [1], device="cpu")
+    assert f.device == torch.device("cpu") and f.tolist() == [False, True, False]
