@@ -4,10 +4,11 @@ Two backends, named as in the JAX package:
 
   * ``xla_segment`` — masked ``scatter_reduce_`` (amin / amax / sum) into an
     identity-filled buffer;
-  * ``pallas_tiled`` — the destination-tile kernels of
-    ``kernels/temporal_edgemap.py``.  It runs the int32 min-combine of a
-    scan-method, out-direction view; every other combine takes the segment
-    path, so the backend is a performance choice, never a correctness one.
+  * ``pallas_tiled`` — the destination-tile kernels: the int32 min-combine
+    (K1, ``kernels/temporal_edgemap.py``) and the float32 sum-combine (K3,
+    ``kernels/segment_spmm.py``) of a scan-method, out-direction view; every
+    other combine takes the segment path, so the backend is a performance
+    choice, never a correctness one.
 
 Segment ids are prepared once per view (:func:`segments_for`): the int64
 scatter index, and for the tiled kernels the layout gather and each slot's
@@ -20,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.engine.plan import AccessPlan
+from repro_torch.kernels.segment_spmm import segment_spmm_tiles
 from repro_torch.kernels.temporal_edgemap import INT_INF, segment_min_tiles
 
 INT_NEG_INF = -(2**31)
@@ -43,6 +45,7 @@ class TileGather(NamedTuple):
 
     index: torch.Tensor      # i64[Ep] view slot of each layout slot (K on padding)
     dst_local: torch.Tensor  # i32[Ep] segment id within its tile (0 on padding)
+    lane: torch.Tensor       # i32[Ep] 1 on edge slots, 0 on padding
 
 
 class Segments(NamedTuple):
@@ -52,10 +55,11 @@ class Segments(NamedTuple):
     tiles: Optional[TileGather] = None
 
 
-def _padded(values: torch.Tensor, fill) -> torch.Tensor:
-    """``values`` [..., K] with one ``fill`` slot appended on the last axis."""
-    pad = values.new_full(values.shape[:-1] + (1,), fill)
-    return torch.cat([values, pad], dim=-1)
+def _padded(values: torch.Tensor, fill, dim: int = -1) -> torch.Tensor:
+    """``values`` with one ``fill`` slot appended on axis ``dim``."""
+    shape = list(values.shape)
+    shape[dim] = 1
+    return torch.cat([values, values.new_full(shape, fill)], dim=dim)
 
 
 def _tile_gather(plan: AccessPlan, segment_ids: torch.Tensor) -> TileGather:
@@ -63,7 +67,7 @@ def _tile_gather(plan: AccessPlan, segment_ids: torch.Tensor) -> TileGather:
     index = torch.where(perm >= 0, perm.long(), segment_ids.shape[0])
     seg = _padded(segment_ids, 0)[index].to(torch.int32)
     dst_local = seg - (seg // plan.tile_v) * plan.tile_v
-    return TileGather(index, dst_local.contiguous())
+    return TileGather(index, dst_local.contiguous(), (perm >= 0).to(torch.int32))
 
 
 def segments_for(plan: Optional[AccessPlan], segment_ids, *,
@@ -85,18 +89,29 @@ def segments_for(plan: Optional[AccessPlan], segment_ids, *,
 def segment_combine(values, segment_ids, num_segments: int, combine: str,
                     mask=None):
     """Masked segment-reduce of ``values`` [K, ...] by ``segment_ids`` [K];
-    invalid lanes contribute the identity, empty segments hold it."""
+    invalid lanes contribute the identity, empty segments hold it.  A
+    float32 sum accumulates in float64 and rounds once: added one by one in
+    float32, a hub's sum of many similar terms drifts by up to its term
+    count times float32's epsilon."""
     ident = _identity(combine, values.dtype)
     ids = segment_ids.long()
     if mask is not None:
         m = mask.reshape(mask.shape + (1,) * (values.dim() - mask.dim()))
         values = torch.where(m, values, ident)
-        ids = torch.where(mask, ids, 0)
+        # A masked lane adds the identity, which changes nothing wherever it
+        # lands: it keeps its own segment (clamped into range) rather than
+        # all masked lanes meeting at segment 0, where on the card their
+        # atomics would serialise on one address.
+        ids = torch.where(mask, ids, ids.clamp(0, max(num_segments - 1, 0)))
     if values.dim() > 1:
         ids = ids.reshape(ids.shape + (1,) * (values.dim() - 1)).expand_as(values)
+    out_dtype = values.dtype
+    if combine == "sum" and out_dtype == torch.float32:
+        values = values.double()
     out = torch.full((num_segments,) + tuple(values.shape[1:]), ident,
                      dtype=values.dtype, device=values.device)
-    return out.scatter_reduce_(0, ids, values, _REDUCE[combine], include_self=True)
+    out.scatter_reduce_(0, ids, values, _REDUCE[combine], include_self=True)
+    return out.to(out_dtype)
 
 
 def segment_combine_windows(values, segment_ids, num_segments: int,
@@ -129,15 +144,18 @@ class PallasTiledBackend:
             return False
         if num_segments > plan.n_tiles * plan.tile_v:
             return False
-        # A "sum" takes the segment path until the tiled spmm kernel (K3)
-        # is ported.
-        return op == "min" and values.dim() == 1 and values.dtype == torch.int32
+        if op == "min":
+            return values.dim() == 1 and values.dtype == torch.int32
+        # K3 takes float32 messages; other float types take the segment path
+        return op == "sum" and values.dim() in (1, 2) and values.dtype == torch.float32
 
     def combine(self, plan, values, segment_ids, num_segments, op, mask=None):
         seg = segments_for(plan, segment_ids, use_layout=True)
         if not self._supports(plan, values, num_segments, op):
             return segment_combine(values, seg.ids, num_segments, op, mask=mask)
-        return self._combine_min(plan, values, seg.tiles, num_segments, mask)
+        if op == "min":
+            return self._combine_min(plan, values, seg.tiles, num_segments, mask)
+        return self._combine_sum(plan, values, seg.tiles, num_segments, mask)
 
     def combine_windows(self, plan, values, segment_ids, num_segments, op,
                         masks=None):
@@ -145,7 +163,10 @@ class PallasTiledBackend:
         if not self._supports(plan, values[0], num_segments, op):
             return segment_combine_windows(values, seg.ids, num_segments, op,
                                            masks=masks)
-        return self._combine_min_windows(plan, values, seg.tiles, num_segments,
+        if op == "min":
+            return self._combine_min_windows(plan, values, seg.tiles,
+                                             num_segments, masks)
+        return self._combine_sum_windows(plan, values, seg.tiles, num_segments,
                                          masks)
 
     def _combine_min(self, plan, values, tiles: TileGather, num_segments, mask):
@@ -167,6 +188,28 @@ class PallasTiledBackend:
             tile_v=plan.tile_v, block_e=plan.block_e,
         )
         return out.reshape(values.shape[0], -1)[:, :num_segments]
+
+    def _combine_sum(self, plan, values, tiles: TileGather, num_segments, mask):
+        return self._combine_sum_windows(
+            plan, values[None], tiles, num_segments,
+            None if mask is None else mask[None])[0]
+
+    def _combine_sum_windows(self, plan, values, tiles: TileGather,
+                             num_segments, masks):
+        """All W windows in ONE K3 launch (W is the kernel's grid y)."""
+        msgs = values[..., None] if values.dim() == 2 else values    # [W, K, F]
+        n_w = msgs.shape[0]
+        msg_g = _padded(msgs, 0.0, dim=1)[:, tiles.index]
+        if masks is None:
+            valid = tiles.lane.expand(n_w, -1).contiguous()
+        else:
+            valid = _padded(masks, False)[:, tiles.index].to(torch.int32)
+        out = segment_spmm_tiles(
+            tiles.dst_local, msg_g, valid, plan.layout_block_tile, plan.n_tiles,
+            tile_v=plan.tile_v, block_e=plan.block_e,
+        )
+        out = out.reshape(n_w, -1, msgs.shape[-1])[:, :num_segments]
+        return out[..., 0] if values.dim() == 2 else out
 
 
 _TILED = PallasTiledBackend()

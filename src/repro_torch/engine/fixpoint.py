@@ -142,39 +142,43 @@ class FixpointRunner:
 
     def step(
         self,
-        frontier: torch.Tensor,        # bool[V] | bool[Q, V]
-        src_state: torch.Tensor,       # [V] | [Q, V]
+        frontier: Optional[torch.Tensor],   # bool[V] | bool[Q, V] | None
+        src_state,                          # [V] | [Q, V], or a tuple of them
         relax: Callable,
         combine: str,
         *,
         compute_touched: bool = False,
     ) -> Tuple[Any, Optional[torch.Tensor]]:
-        """One relaxation round; ``touched`` (segments that received a valid
-        contribution) costs an extra segment-sum and is opt-in."""
-        if self.batched:
-            valid = self.valid & frontier[:, self.from_v]
-            cand, extra = relax(self.edges, src_state[:, self.from_v])
+        """One relaxation round.  ``src_state`` (a tensor or a tuple of
+        tensors) is gathered at each edge's source and handed to
+        ``relax(edges, gathered) -> (cand, extra)``; ``extra`` is a bool
+        mask ANDed into the edge validity, or None for none.  ``frontier``
+        None means every vertex is in the frontier (no frontier gather).
+        ``touched`` (segments that received a valid contribution) costs an
+        extra segment-sum and is opt-in."""
+        cols = (slice(None), self.from_v) if self.batched else self.from_v
+        valid = self.valid if frontier is None else self.valid & frontier[cols]
+        if isinstance(src_state, tuple):
+            gathered = tuple(a[cols] for a in src_state)
+        else:
+            gathered = src_state[cols]
+        cand, extra = relax(self.edges, gathered)
+        if extra is not None:
             valid = valid & extra
+        if self.batched:
             cand = torch.broadcast_to(cand, valid.shape)
             out = combine_windows_for_plan(
                 self.plan, cand, self.segments, self.n_vertices, combine,
                 masks=valid)
-            if not compute_touched:
-                return out, None
-            touched = segment_combine_windows(
-                valid.to(torch.int32), self.segments.ids, self.n_vertices,
-                "sum") > 0
-            return out, touched
-
-        valid = self.valid & frontier[self.from_v]
-        cand, extra = relax(self.edges, src_state[self.from_v])
-        valid = valid & extra
-        out = combine_for_plan(self.plan, cand, self.segments, self.n_vertices,
-                               combine, mask=valid)
+            touch = segment_combine_windows
+        else:
+            out = combine_for_plan(self.plan, cand, self.segments,
+                                   self.n_vertices, combine, mask=valid)
+            touch = segment_combine
         if not compute_touched:
             return out, None
-        touched = segment_combine(valid.to(torch.int32), self.segments.ids,
-                                  self.n_vertices, "sum") > 0
+        touched = touch(valid.to(torch.int32), self.segments.ids,
+                        self.n_vertices, "sum") > 0
         return out, touched
 
     # -- the loop ----------------------------------------------------------

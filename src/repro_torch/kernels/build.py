@@ -35,6 +35,11 @@ SIGNATURES = {
         # tile_v, block_e, ta, tb, strict, stream
         "temporal_relax_min_tiles_launch": [_P] * 7 + [_I] * 7 + [_P],
     },
+    "segment_spmm": {
+        # dst_local, messages, valid, block_tile, out, n_blocks, n_tiles,
+        # tile_v, block_e, d, n_windows, stream
+        "segment_spmm_tiles_launch": [_P] * 5 + [_I] * 6 + [_P],
+    },
 }
 
 _LOCK = threading.Lock()

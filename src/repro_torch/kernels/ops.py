@@ -1,9 +1,11 @@
-"""Wrappers binding the relax kernel (K2) to plain edge arrays.
+"""Wrappers binding the relax kernel (K2) and the segment-sum kernel (K3)
+to plain edge arrays.
 
 ``relax_min`` applies the destination-tile layout to the edge arrays (the
 gathers stay outside the kernel), launches K2 and unpacks the tiles to a
 dense [V] result; ``earliest_arrival_kernel`` drives it to a fixpoint with
-one host sync per round.
+one host sync per round.  ``spmm`` does the same for K3: [E, D] messages in,
+[V, D] sums out.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 from repro_torch.core.hostcache import identity_cache
 from repro_torch.device import to_numpy
 from repro_torch.kernels.layout import TileLayout, build_tile_layout
+from repro_torch.kernels.segment_spmm import segment_spmm_tiles
 from repro_torch.kernels.temporal_edgemap import INT_INF, temporal_relax_min_tiles
 
 
@@ -102,4 +105,29 @@ def earliest_arrival_kernel(
     return arrival
 
 
-__all__ = ["prepare_layout", "relax_min", "earliest_arrival_kernel"]
+def spmm(
+    layout: TileLayout,
+    dst,
+    messages,        # f32[E, D] per-edge messages (already gathered/scaled)
+    *,
+    n_vertices: int,
+    valid_edges=None,
+):
+    """Segment-sum of ``messages`` by destination through K3: returns
+    [n_vertices, D].  The layout's tile shape is used throughout."""
+    perm = torch.as_tensor(layout.perm, device=messages.device)
+    dst_g = _gather_padded(dst, perm, 0)
+    dst_local = dst_g - (dst_g // layout.tile_v) * layout.tile_v
+    msg_g = messages[perm.clamp(min=0).long()].contiguous()
+    valid = perm >= 0
+    if valid_edges is not None:
+        valid = valid & _gather_padded(valid_edges, perm, False)
+    tiles = segment_spmm_tiles(
+        dst_local, msg_g, valid.to(torch.int32),
+        torch.as_tensor(layout.block_tile, device=messages.device), layout.n_tiles,
+        tile_v=layout.tile_v, block_e=layout.block_e,
+    )
+    return tiles.reshape(-1, messages.shape[-1])[:n_vertices]
+
+
+__all__ = ["prepare_layout", "relax_min", "earliest_arrival_kernel", "spmm"]

@@ -21,4 +21,13 @@ def temporal_relax_min_ref(dst, arr_src, t_start, t_end, valid, window,
     return out.scatter_reduce_(0, ids, cand, "amin", include_self=True)
 
 
-__all__ = ["temporal_relax_min_ref"]
+def segment_spmm_ref(dst, messages, valid, n_vertices: int):
+    """out[v, :] = sum of ``messages`` [E, D] over the valid edges into v."""
+    m = torch.where(valid[:, None], messages, 0.0)
+    ids = torch.where(valid, dst.long(), 0)
+    out = torch.zeros((n_vertices,) + tuple(messages.shape[1:]),
+                      dtype=messages.dtype, device=messages.device)
+    return out.index_add_(0, ids, m)
+
+
+__all__ = ["temporal_relax_min_ref", "segment_spmm_ref"]

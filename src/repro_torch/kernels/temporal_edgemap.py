@@ -171,17 +171,6 @@ def temporal_relax_min_tiles(dst_local, arr_src, t_start, t_end, valid,
 
 temporal_relax_min_tiles.launches = 0
 
-KERNELS = (segment_min_tiles, temporal_relax_min_tiles)
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
-
-
-def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
-
 
 __all__ = [
     "INT_INF",
@@ -190,6 +179,4 @@ __all__ = [
     "temporal_relax_min_tiles",
     "temporal_relax_min_tiles_plain",
     "relax_candidates",
-    "reset_launch_counts",
-    "launch_counts",
 ]

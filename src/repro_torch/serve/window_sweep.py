@@ -2,29 +2,101 @@
 
 ``sweep`` answers all W windows in one batched execution over the union
 window's view; ``sweep_looped`` is its reference, W independent
-single-window runs under the same plan.  The port serves
-``earliest_arrival``; the other algorithms come with their modules.
+single-window runs under the same plan.  Both serve the seven algorithms of
+the JAX package's sweep; the incremental server (warm starts,
+``SweepState``, ``serve_batch``) is not in the port yet.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.algorithms.paths import earliest_arrival, earliest_arrival_batched
+from repro_torch.core.algorithms import (
+    earliest_arrival,
+    earliest_arrival_batched,
+    overlaps_reachability,
+    overlaps_reachability_batched,
+    temporal_betweenness,
+    temporal_betweenness_batched,
+    temporal_bfs,
+    temporal_bfs_batched,
+    temporal_cc,
+    temporal_cc_batched,
+    temporal_kcore,
+    temporal_kcore_batched,
+    temporal_pagerank,
+    temporal_pagerank_batched,
+)
 from repro_torch.core.temporal_graph import TemporalGraph
 from repro_torch.core.tger import TGERIndex
 from repro_torch.device import to_numpy
 from repro_torch.engine.plan import AccessPlan, plan_query
 
-ALGORITHMS = ("earliest_arrival",)
+
+class _Algo(NamedTuple):
+    batched: Callable   # (g, source, windows, tger, plan, kw) -> [W, V] | tuple
+    single: Callable    # (g, source, window, tger, plan, kw) -> [V] | tuple
+    n_outputs: int
 
 
-def _check_algorithm(algorithm: str) -> None:
-    if algorithm not in ALGORITHMS:
+def _require_k(kw):
+    if "k" not in kw:
+        raise ValueError("algorithm='kcore' requires the k= parameter")
+    kw = dict(kw)
+    return kw.pop("k"), kw
+
+
+def _b_kcore(g, s, w, t, plan, kw):
+    k, kw = _require_k(kw)
+    return temporal_kcore_batched(g, k, w, t, plan=plan, **kw)
+
+
+def _s_kcore(g, s, w, t, plan, kw):
+    k, kw = _require_k(kw)
+    return temporal_kcore(g, k, w, t, plan=plan, **kw)
+
+
+_ALGOS = {
+    "earliest_arrival": _Algo(
+        lambda g, s, w, t, plan, kw: earliest_arrival_batched(g, s, w, t, plan=plan, **kw),
+        lambda g, s, w, t, plan, kw: earliest_arrival(g, s, w, t, plan=plan, **kw),
+        1),
+    "reachability": _Algo(
+        lambda g, s, w, t, plan, kw: overlaps_reachability_batched(
+            g, s, w, t, plan=plan, **kw),
+        lambda g, s, w, t, plan, kw: overlaps_reachability(g, s, w, t, plan=plan, **kw),
+        3),
+    "pagerank": _Algo(
+        lambda g, s, w, t, plan, kw: temporal_pagerank_batched(g, w, t, plan=plan, **kw),
+        lambda g, s, w, t, plan, kw: temporal_pagerank(g, w, t, plan=plan, **kw),
+        1),
+    "bfs": _Algo(
+        lambda g, s, w, t, plan, kw: temporal_bfs_batched(g, s, w, t, plan=plan, **kw),
+        lambda g, s, w, t, plan, kw: temporal_bfs(g, s, w, t, plan=plan, **kw),
+        2),
+    "cc": _Algo(
+        lambda g, s, w, t, plan, kw: temporal_cc_batched(g, w, t, plan=plan, **kw),
+        lambda g, s, w, t, plan, kw: temporal_cc(g, w, t, plan=plan, **kw),
+        1),
+    "kcore": _Algo(_b_kcore, _s_kcore, 1),
+    "betweenness": _Algo(
+        lambda g, s, w, t, plan, kw: temporal_betweenness_batched(
+            g, s, w, t, plan=plan, **kw),
+        lambda g, s, w, t, plan, kw: temporal_betweenness(g, [s], w, t, plan=plan, **kw),
+        1),
+}
+
+ALGORITHMS = tuple(_ALGOS)
+
+
+def _algo(algorithm: str) -> _Algo:
+    try:
+        return _ALGOS[algorithm]
+    except KeyError:
         raise ValueError(
-            f"algorithm must be one of {ALGORITHMS} in the port, got {algorithm!r}")
+            f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}") from None
 
 
 def sliding_windows(t_end: int, width: int, stride: int, count: int) -> np.ndarray:
@@ -37,10 +109,11 @@ def sliding_windows(t_end: int, width: int, stride: int, count: int) -> np.ndarr
     return wins.astype(np.int32)
 
 
-def _plan(g, tger, windows, plan, access, backend):
+def _windows_and_plan(g, tger, windows, plan, access, backend):
+    windows = to_numpy(windows).astype(np.int32).reshape(-1, 2)
     if plan is None:
         plan = plan_query(g, tger, windows=windows, access=access, backend=backend)
-    return plan
+    return windows, plan
 
 
 def sweep(
@@ -54,14 +127,16 @@ def sweep(
     backend: str = "xla_segment",
     plan: Optional[AccessPlan] = None,
     **kwargs,
-) -> torch.Tensor:
-    """Answer one query over W windows in a single batched execution;
-    returns [W, V].  ``plan`` defaults to the union-window plan whose
-    budgets cover every member window."""
-    _check_algorithm(algorithm)
-    windows = to_numpy(windows).astype(np.int32).reshape(-1, 2)
-    plan = _plan(g, tger, windows, plan, access, backend)
-    return earliest_arrival_batched(g, source, windows, tger, plan=plan, **kwargs)
+):
+    """Answer one query over W windows in a single batched execution.
+
+    Returns [W, V], or a tuple of [W, V] tensors for the multi-output
+    algorithms (reachability, bfs).  ``plan`` defaults to the union-window
+    plan whose budgets cover every member window.  ``source`` is ignored by
+    the source-free algorithms (pagerank, cc, kcore); kcore needs ``k=``."""
+    entry = _algo(algorithm)
+    windows, plan = _windows_and_plan(g, tger, windows, plan, access, backend)
+    return entry.batched(g, source, windows, tger, plan, kwargs)
 
 
 def sweep_looped(
@@ -75,16 +150,16 @@ def sweep_looped(
     backend: str = "xla_segment",
     plan: Optional[AccessPlan] = None,
     **kwargs,
-) -> torch.Tensor:
+):
     """Reference execution: W independent single-window runs under the SAME
-    union plan.  Returns the same [W, V] stacking as :func:`sweep`."""
-    _check_algorithm(algorithm)
-    windows = to_numpy(windows).astype(np.int32).reshape(-1, 2)
-    plan = _plan(g, tger, windows, plan, access, backend)
-    return torch.stack([
-        earliest_arrival(g, source, (int(w[0]), int(w[1])), tger, plan=plan, **kwargs)
-        for w in windows
-    ])
+    union plan.  Returns the same [W, ...] stacking as :func:`sweep`."""
+    entry = _algo(algorithm)
+    windows, plan = _windows_and_plan(g, tger, windows, plan, access, backend)
+    rows = [entry.single(g, source, (int(w[0]), int(w[1])), tger, plan, kwargs)
+            for w in windows]
+    if entry.n_outputs > 1:
+        return tuple(torch.stack([r[i] for r in rows]) for i in range(entry.n_outputs))
+    return torch.stack(rows)
 
 
 __all__ = ["sliding_windows", "sweep", "sweep_looped", "ALGORITHMS"]

@@ -21,7 +21,16 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.core.algorithms, repro_torch.serve\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.kernels.segment_spmm, repro_torch.kernels.ref\n"
         "import repro_torch.data, repro_torch.engine.fixpoint\n"
+        "import repro_torch.core.algorithms.pagerank, repro_torch.core.algorithms.bfs\n"
+        "import repro_torch.core.algorithms.connectivity\n"
+        "import repro_torch.core.algorithms.kcore\n"
+        "import repro_torch.core.algorithms.reachability\n"
+        "import repro_torch.core.algorithms.centrality\n"
+        "from repro_torch.kernels import launch_counts\n"
+        "assert set(launch_counts()) == {'segment_min_tiles',\n"
+        "    'temporal_relax_min_tiles', 'segment_spmm_tiles'}\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -10,10 +10,31 @@ import dataclasses
 import numpy as np
 import torch
 
+import repro.core  # noqa: F401  (the JAX package must import core before engine)
 import repro.core.temporal_graph as jtg
+import repro.core.tger as jtger
+import repro.data.generators as jgen
+import repro.engine.plan as jplan
 import repro_torch.core.temporal_graph as ttg
+import repro_torch.core.tger as ttger
+import repro_torch.data.generators as tgen
+import repro_torch.engine.plan as tplan
 
 CPU = "cpu"
+
+# The port's tests run small tensors; torch's intra-op threads would only
+# contend with the other test workers (xdist) for the cores.
+torch.set_num_threads(1)
+
+# the {scan, index, hybrid} x {xla_segment, pallas_tiled} plan cells
+CELLS = [(a, b) for a in ("scan", "index", "hybrid")
+         for b in ("xla_segment", "pallas_tiled")]
+
+GRAPHS = {
+    "power_law": ("power_law_temporal_graph", dict(n_vertices=300, n_edges=3000, seed=21)),
+    "transit": ("transit_temporal_graph", dict(n_vertices=200, n_edges=2400, seed=22,
+                                                headway=300)),
+}
 
 
 def as_np(a) -> np.ndarray:
@@ -56,3 +77,50 @@ def assert_fields_equal(ref, port, names=None):
             assert (a == b).all(), name
         else:
             assert a == b, (name, a, b)
+
+
+def graph_pair(kind, cutoff=48):
+    """Both packages' generated graph of ``kind`` (see GRAPHS) and their TGER
+    indexes: (jax graph, port graph, jax index, port index)."""
+    fn, kw = GRAPHS[kind]
+    jg = getattr(jgen, fn)(**kw)
+    tg = getattr(tgen, fn)(**kw, device=CPU)
+    return jg, tg, jtger.build_tger(jg, degree_cutoff=cutoff), ttger.build_tger(
+        tg, degree_cutoff=cutoff)
+
+
+def query_setup(kind):
+    """``graph_pair`` plus three windows (a wide suffix, the last span/50,
+    the first half of the span) and two sources (the top out-degree vertex
+    and the median one)."""
+    jg, tg, ji, ti = graph_pair(kind)
+    ts = np.asarray(jg.t_start)
+    t_lo, t_hi = int(ts.min()), int(np.asarray(jg.t_end).max())
+    span = t_hi - t_lo
+    wins = [(int(np.quantile(ts, 0.3)), t_hi), (t_hi - span // 50, t_hi),
+            (t_lo, t_lo + span // 2)]
+    deg = np.asarray(jg.out_degree)
+    sources = [int(np.argmax(deg)), int(np.argsort(deg)[len(deg) // 2])]
+    return jg, tg, ji, ti, wins, sources
+
+
+def plans(jg, tg, ji, ti, access, backend, **where):
+    """Both packages' plans for one cell (``window=`` or ``windows=``);
+    their cache keys agree."""
+    jp = jplan.plan_query(jg, ji, access=access, backend=backend, **where)
+    tp = tplan.plan_query(tg, ti, access=access, backend=backend, **where)
+    assert jp.cache_key == tp.cache_key
+    return jp, tp
+
+
+def assert_same(want, got):
+    """Exact equality of a result or a tuple of results, shapes included."""
+    if isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want)
+        for a, b in zip(want, got):
+            assert_same(a, b)
+        return
+    a, b = np.asarray(want), as_np(got)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    assert a.dtype == b.dtype, (a.dtype, b.dtype)
+    assert (a == b).all()

@@ -187,11 +187,20 @@ def test_combine_for_plan_routes():
     assert torch.equal(seg, tiled)
     assert tback.segments_for(tp, tg.dst, use_layout=True).tiles is not None
     assert tback.segments_for(tp, tg.dst, use_layout=False).tiles is None
-    # a sum on the tiled backend takes the segment path (K3 is not ported)
+    # a float32 sum on the tiled backend runs K3 (its plain version here):
+    # the layout's summation order, so equal to the segment path within
+    # float32 rounding; a float64 sum and an int32 sum take the segment path
     fv = vals.float()
-    assert torch.equal(
-        tback.combine_for_plan(tp, fv, tg.dst, tg.n_vertices, "sum", use_layout=True),
-        tback.segment_combine(fv, tg.dst, tg.n_vertices, "sum"))
+    np.testing.assert_allclose(
+        as_np(tback.combine_for_plan(tp, fv, tg.dst, tg.n_vertices, "sum",
+                                     mask=mask, use_layout=True)),
+        as_np(tback.segment_combine(fv, tg.dst, tg.n_vertices, "sum", mask=mask)),
+        rtol=1e-6)
+    for other in (vals.double(), vals):
+        assert torch.equal(
+            tback.combine_for_plan(tp, other, tg.dst, tg.n_vertices, "sum",
+                                   use_layout=True),
+            tback.segment_combine(other, tg.dst, tg.n_vertices, "sum"))
 
 
 @pytest.mark.parametrize("n_v,n_e,tile_v,block_e", SHAPES[:4])

@@ -9,47 +9,19 @@ import torch
 import repro.core  # noqa: F401  (the JAX package must import core before engine)
 import repro.core.algorithms as jalg
 import repro.core.predicates as jpred
-import repro.core.tger as jtger
-import repro.data.generators as jgen
 import repro.engine.plan as jplan
 import repro.serve.window_sweep as jsweep
 import repro_torch.core.algorithms as talg
 import repro_torch.core.predicates as tpred
-import repro_torch.core.tger as ttger
-import repro_torch.data.generators as tgen
 import repro_torch.engine.plan as tplan
 import repro_torch.serve.window_sweep as tsweep
 from repro.core.reference import earliest_arrival_ref
 from repro_torch.core.edgemap import view_for_plan
-from test_torch_common import CPU, as_np, both_graphs
+from test_torch_common import as_np, both_graphs, query_setup
 
 INF = 2**31 - 1
 
-GRAPHS = {
-    "power_law": ("power_law_temporal_graph", dict(n_vertices=300, n_edges=3000, seed=21)),
-    "transit": ("transit_temporal_graph", dict(n_vertices=200, n_edges=2400, seed=22,
-                                                headway=300)),
-}
-
-
-def _pair(kind, cutoff=48):
-    fn, kw = GRAPHS[kind]
-    jg = getattr(jgen, fn)(**kw)
-    tg = getattr(tgen, fn)(**kw, device=CPU)
-    return jg, tg, jtger.build_tger(jg, degree_cutoff=cutoff), ttger.build_tger(
-        tg, degree_cutoff=cutoff)
-
-
-def _setup(kind):
-    jg, tg, ji, ti = _pair(kind)
-    ts = np.asarray(jg.t_start)
-    t_lo, t_hi = int(ts.min()), int(np.asarray(jg.t_end).max())
-    span = t_hi - t_lo
-    wins = [(int(np.quantile(ts, 0.3)), t_hi), (t_hi - span // 50, t_hi),
-            (t_lo, t_lo + span // 2)]
-    deg = np.asarray(jg.out_degree)
-    sources = [int(np.argmax(deg)), int(np.argsort(deg)[len(deg) // 2])]
-    return jg, tg, ji, ti, wins, sources
+_setup = query_setup
 
 
 def _eq(a, b):
@@ -163,10 +135,13 @@ def test_sweep_matches_jax_and_looped(kind, access, backend):
 
 
 def test_sweep_rejects_other_algorithms():
+    """An algorithm outside the JAX package's ALGORITHMS is refused with the
+    list of the ones the sweep serves."""
     _, tg, _, ti, wins, _ = _setup("transit")
+    assert tsweep.ALGORITHMS == jsweep.ALGORITHMS
     for fn in (tsweep.sweep, tsweep.sweep_looped):
         with pytest.raises(ValueError, match="earliest_arrival"):
-            fn(tg, 0, [wins[0]], ti, algorithm="bfs")
+            fn(tg, 0, [wins[0]], ti, algorithm="latest_departure")
     with pytest.raises(ValueError):
         talg.earliest_arrival_batched(tg, [0, 1], [wins[0]], ti)
     with pytest.raises(ValueError):
