@@ -19,7 +19,19 @@
    k-core, overlaps reachability and betweenness across both backends (and
    against numpy/scipy oracles for BFS, CC and k-core); profiles of one EA
    and one PageRank query.  The kernels' launch counts are read around it.
-5. Prints the kernel table as one JSON line, then the result line.
+5. K4 (flash-decode attention) at phi4-mini-3.8b's decode shape (8 rows,
+   2048 positions, ragged lengths, GQA group 3, d_head 128) in bfloat16 and
+   float32 against its plain version, timed beside it, beside
+   scaled_dot_product_attention and beside its bytes bound.
+6. LM continuous batching at phi4-mini-3.8b's published widths (32 layers,
+   bfloat16, random weights from ``--seed``): a ServeEngine of 8 slots x
+   2048 positions serves 16 seeded requests (prompts of 16-512 tokens,
+   budgets up to 64, one of 1 and one of 0), with launch counts reset just
+   before and read just after (K4 launches = 32 x decode steps); layer 0
+   of the engine's own decode steps and every served token are checked
+   against ``forward``; prefill and decode times, tokens/s and a profile of
+   one decode step are printed.
+7. Prints the kernel table as one JSON line, then the result line.
 
 Any mismatch raises, and the script exits non-zero.  It imports nothing
 of JAX or of the JAX package.
@@ -50,7 +62,66 @@ PAGERANK_ITERS = 100  # paper §6.1
 PAGERANK_BIG_VIEW = 8
 PAGERANK_BIG_VIEW_ITERS = 10
 SPMM_TOL = dict(rtol=2e-4, atol=2e-4)   # the JAX kernel sweep's tolerance
-KERNEL_STEMS = ("temporal_edgemap", "segment_spmm")
+KERNEL_STEMS = ("temporal_edgemap", "segment_spmm", "decode_attention")
+# K4 against its plain version: float32 at the reference kernel's
+# tolerance; bfloat16 against the plain version on float32 copies of the
+# same inputs, rounded to bfloat16 once, which is the kernel's own
+# arithmetic (float32 throughout, the output rounded once): one bfloat16
+# ulp (at most 2**-7 of the value) plus float32 summation noise.  The plain
+# version on the bfloat16 inputs themselves, which rounds q * scale and the
+# probabilities to bfloat16 as the reference's oracle does, is reported.
+K4_TOL = {"bfloat16": dict(rtol=2**-7, atol=2**-12),
+          "float32": dict(rtol=2e-5, atol=2e-5)}
+# scaled_dot_product_attention on the same inputs, a sanity check of the
+# library call that is timed: in bfloat16 it rounds the probabilities too
+LIBRARY_TOL = {"bfloat16": dict(rtol=2**-6, atol=2**-6),
+               "float32": dict(rtol=2e-5, atol=2e-5)}
+# LM serving at phi4-mini-3.8b's published widths, 32 layers, bfloat16
+LM_ARCH = "phi4-mini-3.8b"
+LM_SLOTS, LM_MAX_SEQ = 8, 2048
+LM_REQUESTS = 16
+LM_PROMPT_LEN = (16, 512)  # <= q_chunk: a longer prompt must be a multiple of it
+LM_MAX_NEW = 64
+# Checks of the served tokens (``check_served_tokens``).  The reference's
+# init (normal / sqrt(shape[-2]): wq scales by 1/sqrt(H), not 1/sqrt(d))
+# gives attention scores a spread of ~220 at these widths, so the softmax is
+# nearly one-hot and a rounding-level change of q moves it; over 32 layers
+# two correct implementations decorrelate, in float32 as in bfloat16 (the
+# reference's own float32 logits move by more than 5e-2 after ten layers
+# when every embedding moves by one ulp: tests/test_torch_lm.py).  So the
+# served tokens are checked where that amplification has no room:
+# - the engine's own state, at layer 0 of every decode step of the served
+#   run (``check_engine_state``): for every request, the layer-0 K/V rows
+#   of its slot, prompt and decoded positions, each within LM_KV_TOL of
+#   forward's over the same tokens, and the engine's layer-0 output at every
+#   decoded position against layer 0's decode block fed forward's K/V: the
+#   median within LM_KV_TOL and each within LM_STATE_H_MAX (last-bit
+#   differences of K move near-tied scores; a wrong slot, length or
+#   position reads unrelated rows and gives ~1);
+# - the first token of each request, from prefill, against ``forward`` over
+#   the prompt alone (the same blocks at the same length; only the head's
+#   matmul differs): within LM_LOGIT_TOL of the row's largest logit, a
+#   few bfloat16 roundings at |logit| ~ 4-8, and the argmax for at least
+#   LM_ARGMAX_MIN of them;
+# - every layer of the decode step, teacher-forced: each request's last
+#   decode position, the block's input taken from ``forward`` over the
+#   prompt and the generated prefix and its cache from forward's K/V, the
+#   decode block's output and written K/V against forward's (relative L2).
+#   In float32, on the served weights widened (LM_F32_REQUESTS requests),
+#   every block within LM_LAYER_TOL.  In bfloat16, on the served model, the
+#   written K/V and the median block within LM_LAYER_TOL, and every block
+#   within it when K4's plain version takes K4's place: that version rounds
+#   q * scale and the probabilities to bfloat16 as forward's attention
+#   does, K4 keeps them in float32 and moves near-tied scores, so K4's
+#   largest block errors are reported beside it, not required;
+# - end to end, each generated token's logit in ``forward`` over prompt and
+#   prefix is reported (argmax share, gap to the row's max), not required.
+LM_LOGIT_TOL = 0.25
+LM_ARGMAX_MIN = 0.9
+LM_LAYER_TOL = {"bfloat16": 2**-6, "float32": 1e-4}
+LM_KV_TOL = 2**-7
+LM_STATE_H_MAX = 0.25
+LM_F32_REQUESTS = 4
 
 
 def parse_args(argv=None):
@@ -665,13 +736,423 @@ def main_path(torch, np, name, g, tger, fields, windows, sources):
     return records
 
 
-def profile_query(torch, label, fn, top: int = 8) -> None:
-    """One query under torch.profiler: device busy time against the host
-    wall clock, and the kernels that take the device time."""
+def decode_phases(torch, np, cfg, gen, k4):
+    """K4 at the LM's decode shape (LM_SLOTS rows, LM_MAX_SEQ positions,
+    ragged lengths in [1, LM_MAX_SEQ]), bfloat16 (the serving type) and
+    float32, inputs drawn from ``gen`` on its device: each against its plain
+    version (K4_TOL), timed beside it and beside one library call,
+    scaled_dot_product_attention with a boolean length mask and GQA, on the
+    same inputs (K and V in its [B, KH, S, Dh] layout, made outside the
+    timing)."""
+    import torch.nn.functional as F
+
+    dev = gen.device
+    B, S, KH, Dh = LM_SLOTS, LM_MAX_SEQ, cfg.n_kv_heads, cfg.head_dim
+    H = cfg.n_heads
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    n_valid = int(lens.sum())
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    recs = {}
+    for name in ("bfloat16", "float32"):
+        dtype = getattr(torch, name)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((B, H, Dh), (B, S, KH, Dh), (B, S, KH, Dh)))
+        got = k4.decode_attention(q, k, v, lens)
+        want = k4.decode_attention_plain(q.float(), k.float(), v.float(), lens).to(dtype)
+        err = close_err(torch, got, want, **K4_TOL[name])
+        typed = k4.decode_attention_plain(q, k, v, lens)
+        qs = q[:, :, None, :]
+        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+        def library():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+        lib_err = close_err(torch, library()[:, :, 0], want, **LIBRARY_TOL[name])
+        esize = q.element_size()
+        rec = dict(
+            max_abs_err=err, plain_typed_max_abs_err=float((got.double() - typed.double())
+                                                           .abs().max()),
+            library_max_abs_err=lib_err,
+            ms=cuda_ms(torch, lambda: k4.decode_attention(q, k, v, lens)),
+            plain_ms=cuda_ms(torch, lambda: k4.decode_attention_plain(q, k, v, lens)),
+            library_ms=cuda_ms(torch, library),
+        )
+        # K and V up to each row's length, q and o once, the lengths
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            2 * n_valid * KH * Dh * esize + 2 * B * H * Dh * esize + 4 * B,
+            4 * n_valid * H * Dh)
+        log(f"K4 decode_attention [B={B}, S={S}, KH={KH}, G={H // KH}, Dh={Dh}, {name}, "
+            f"{n_valid} valid positions]: within rtol {K4_TOL[name]['rtol']:.3g} / atol "
+            f"{K4_TOL[name]['atol']:.3g} of the plain version on float32 copies; {rec}")
+        recs[name] = rec
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:82",
+                shape=dict(B=B, S=S, KH=KH, G=H // KH, Dh=Dh, valid_positions=n_valid),
+                **recs["bfloat16"], float32=recs["float32"],
+                library_note="scaled_dot_product_attention, boolean length mask, "
+                             "enable_gqa")
+
+
+def _padded(np, seq, q_chunk):
+    """Token ids [1, S'] for ``forward``: S' is S, or the next multiple of
+    q_chunk when S is longer (the chunking needs it; causal attention keeps
+    the padding out of the first S positions)."""
+    s_len = len(seq)
+    if s_len > q_chunk:
+        s_len = -(-s_len // q_chunk) * q_chunk
+    toks = np.zeros((1, s_len), np.int32)
+    toks[0, :len(seq)] = seq
+    return toks
+
+
+def _rel(a, b):
+    """Relative L2 error of ``a`` against ``b``."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _rel_rows(a, b):
+    """Relative L2 error of each row (first axis) of ``a`` against ``b``."""
+    a, b = a.double().flatten(1), b.double().flatten(1)
+    return (a - b).norm(dim=1) / b.norm(dim=1)
+
+
+def layer_errors(torch, np, model, seq, p):
+    """Teacher-forced per layer at position ``p`` of ``seq``: the decode
+    block fed forward's input to that block and a cache of forward's K/V
+    before p, against forward's block output and K/V at p, once with K4
+    (on the card) and once with K4's plain version in its place.  Returns
+    the relative L2 errors [(h, k, v, h_plain)] per layer."""
+    from unittest import mock
+
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.models import transformer as tf
+
+    cfg, dev = model.cfg, model.device
+    toks = torch.as_tensor(_padded(np, seq, cfg.q_chunk), device=dev)
+    S = toks.shape[1]
+    h = model.embed[toks].to(cfg.dtype)
+    rot = tf.rope_tables(torch.arange(S, device=dev)[None], cfg.head_dim, cfg.rope_theta)
+    at = torch.tensor([p], device=dev)
+    rot_p = tf.rope_tables(at[:, None], cfg.head_dim, cfg.rope_theta)
+    slot = (torch.arange(1, device=dev), at, (at + 1).to(torch.int32))
+    kc = torch.zeros((1, S, cfg.n_kv_heads, cfg.head_dim), dtype=cfg.dtype, device=dev)
+    vc = torch.zeros_like(kc)
+
+    out = []
+    for blk in model.layers:
+        h_in = h[:, p]
+        h, k, v = tf.layer_forward(cfg, blk, h, rot)
+        kc[0, :p], vc[0, :p] = k[0, :p], v[0, :p]
+        with mock.patch.object(tf, "decode_attention", decode_attention_plain):
+            h_plain = tf.layer_decode(cfg, blk, h_in, kc, vc, slot, rot_p)
+        h_dec = tf.layer_decode(cfg, blk, h_in, kc, vc, slot, rot_p)
+        out.append((_rel(h_dec, h[:, p]), _rel(kc[0, p], k[0, p]), _rel(vc[0, p], v[0, p]),
+                    _rel(h_plain, h[:, p])))
+    return out
+
+
+def check_engine_state(torch, np, model, reqs, h0_rows, kv0):
+    """The engine's own decode state at layer 0, read during the served run
+    (``lm_path``): ``h0_rows[rid]`` holds (position, layer-0 output row) of
+    each decode step of request ``rid`` and ``kv0[rid]`` its slot's layer-0
+    K/V rows after its last step.  Against forward's layer 0 over the
+    request's prompt and generated prefix: the K/V rows (LM_KV_TOL), and
+    the outputs against layer 0's decode block fed forward's K/V at each
+    decoded position (median within LM_KV_TOL, each within
+    LM_STATE_H_MAX), so that what is compared is the engine's state and not
+    the two attention routes' rounding; forward's own outputs are
+    reported.  The decoded positions must be exactly those after the
+    prompt.  Raises on a miss, returns the figures."""
+    from repro_torch.models.transformer import layer_decode, layer_forward, rope_tables
+
+    cfg, dev = model.cfg, model.device
+    blk = model.layers[0]
+    kv_err, h_err, fwd_err = [], [], []
+    for r in reqs:
+        if len(r.generated) < 2:
+            if r.rid in h0_rows:
+                raise AssertionError(f"[lm] request {r.rid} decoded with a budget of "
+                                     f"{r.max_new_tokens}")
+            continue
+        seq = np.concatenate([r.prompt, np.asarray(r.generated[:-1], np.int32)])
+        positions = [p for p, _ in h0_rows[r.rid]]
+        if positions != list(range(len(r.prompt), len(seq))):
+            raise AssertionError(f"[lm] request {r.rid} decoded positions {positions[:3]}.."
+                                 f"{positions[-3:]}, expected {len(r.prompt)}..{len(seq) - 1}")
+        toks = torch.as_tensor(_padded(np, seq, cfg.q_chunk), device=dev)
+        S = toks.shape[1]
+        rot = rope_tables(torch.arange(S, device=dev)[None], cfg.head_dim, cfg.rope_theta)
+        h, k, v = layer_forward(cfg, blk, model.embed[toks].to(cfg.dtype), rot)
+        kc, vc = kv0[r.rid]
+        kv_err.append(torch.maximum(_rel_rows(kc, k[0, :len(seq)]),
+                                    _rel_rows(vc, v[0, :len(seq)])).max().item())
+        # every decoded position at once, one row each over forward's K/V
+        at = torch.tensor(positions, device=dev)
+        n = len(positions)
+        slot = (torch.arange(n, device=dev), at, (at + 1).to(torch.int32))
+        ref = layer_decode(cfg, blk, model.embed[toks[0, at]].to(cfg.dtype),
+                           k.expand(n, -1, -1, -1).contiguous(),
+                           v.expand(n, -1, -1, -1).contiguous(), slot,
+                           rope_tables(at[:, None], cfg.head_dim, cfg.rope_theta))
+        rows = torch.stack([row for _, row in h0_rows[r.rid]])
+        h_err += _rel_rows(rows, ref).tolist()
+        fwd_err += _rel_rows(rows, h[0, at]).tolist()
+    kv_max, h_med, h_max = max(kv_err), float(np.median(h_err)), max(h_err)
+    log(f"[lm] engine state at layer 0, {len(kv_err)} requests: K/V rows of each slot, "
+        f"largest relative error {kv_max:.3g} (tol {LM_KV_TOL:.3g}); the output at "
+        f"{len(h_err)} decoded positions against the decode block on forward's K/V: median "
+        f"{h_med:.3g} (tol {LM_KV_TOL:.3g}), max {h_max:.3g} (tol {LM_STATE_H_MAX}); "
+        f"against forward's output (reported): median {np.median(fwd_err):.3g}, max "
+        f"{max(fwd_err):.3g}")
+    if kv_max > LM_KV_TOL or h_med > LM_KV_TOL or h_max > LM_STATE_H_MAX:
+        raise AssertionError(f"[lm] engine state off forward's at layer 0: K/V {kv_max:.3g}, "
+                             f"output median {h_med:.3g}, max {h_max:.3g}")
+    return dict(state_kv_max_rel_err=kv_max, state_h0_median_rel_err=h_med,
+                state_h0_max_rel_err=h_max, state_h0_forward_median_rel_err=float(
+                    np.median(fwd_err)), state_decoded_positions=len(h_err))
+
+
+def check_served_tokens(torch, np, model, reqs):
+    """The checks of the served tokens described at LM_LOGIT_TOL; raises on
+    a miss, returns the figures."""
+    import dataclasses
+
+    from repro_torch.models.transformer import LM, forward
+
+    cfg, dev = model.cfg, model.device
+    t0 = time.perf_counter()
+    served = [r for r in reqs if r.generated]
+    # 1. the first token, from prefill, against forward over the prompt
+    first_gap, exact = 0.0, 0
+    for r in served:
+        row = forward(model, torch.as_tensor(r.prompt, device=dev)[None])[0, -1]
+        first_gap = max(first_gap, float(row.max() - row[r.generated[0]]))
+        exact += int(int(row.argmax()) == r.generated[0])
+    first_share = exact / len(served)
+    log(f"[lm] first tokens (prefill) against forward over the prompt: argmax agrees "
+        f"on {exact} of {len(served)}; largest gap to the row's max {first_gap:.4f} "
+        f"(tol {LM_LOGIT_TOL})")
+    if first_share < LM_ARGMAX_MIN or first_gap > LM_LOGIT_TOL:
+        raise AssertionError(f"[lm] first tokens off forward: argmax share {first_share:.4f} "
+                             f"(min {LM_ARGMAX_MIN}), largest gap {first_gap:.4f}")
+
+    # 2. every layer of a decode step, teacher-forced, bfloat16 and float32
+    decoded = [r for r in served if len(r.generated) >= 2]
+    wide_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    wide = LM(wide_cfg, {n: p.float() for n, p in model.named_parameters(recurse=False)},
+              [{n: p.float() for n, p in blk.named_parameters()} for blk in model.layers])
+    figures = {}
+    for name, m, rs in (("bfloat16", model, decoded),
+                        ("float32", wide, decoded[:LM_F32_REQUESTS])):
+        errs = []
+        for r in rs:
+            seq = np.concatenate([r.prompt, np.asarray(r.generated[:-1], np.int32)])
+            errs += layer_errors(torch, np, m, seq, len(seq) - 1)
+        errs = np.asarray(errs)  # [requests x layers, (h, k, v, h_plain)]
+        kv_max, plain_max = float(errs[:, 1:3].max()), float(errs[:, 3].max())
+        h_med, h_max = float(np.median(errs[:, 0])), float(errs[:, 0].max())
+        figures[name] = dict(h_med=h_med, h_max=h_max, kv_max=kv_max, plain_max=plain_max)
+        log(f"[lm] decode blocks teacher-forced, {name}: {len(rs)} requests x "
+            f"{cfg.n_layers} layers; relative error of the block output with K4: median "
+            f"{h_med:.3g}, max {h_max:.3g}; with K4's plain version: median "
+            f"{np.median(errs[:, 3]):.3g}, max {plain_max:.3g}; of the written K/V: max "
+            f"{kv_max:.3g} (tol {LM_LAYER_TOL[name]:.3g})")
+        worst = float(errs.max()) if name == "float32" else max(kv_max, h_med, plain_max)
+        if worst > LM_LAYER_TOL[name]:
+            raise AssertionError(f"[lm] decode blocks off forward's in {name}: "
+                                 f"{worst:.3g} > {LM_LAYER_TOL[name]:.3g}")
+    del wide
+
+    # 3. end to end, reported: each token against forward over prompt + prefix
+    gaps, exact = [], 0
+    for r in served:
+        seq = np.concatenate([r.prompt, np.asarray(r.generated[:-1], np.int32)])
+        rows = forward(model, torch.as_tensor(_padded(np, seq, cfg.q_chunk), device=dev))[
+            0, len(r.prompt) - 1: len(seq)]
+        tok = torch.as_tensor(r.generated, device=dev)
+        gaps += (rows.max(dim=-1).values - rows.gather(1, tok[:, None])[:, 0]).tolist()
+        exact += int((rows.argmax(dim=-1) == tok).sum())
+    gaps = np.asarray(gaps)
+    log(f"[lm] end to end (reported, not required): {exact} of {len(gaps)} served tokens "
+        f"are forward's argmax over prompt + prefix ({exact / len(gaps):.4f}); gap to the "
+        f"row's max: median {np.median(gaps):.4f}, max {gaps.max():.4f}; checks took "
+        f"{time.perf_counter() - t0:.2f} s")
+    return dict(first_token_argmax_share=first_share, first_token_max_gap=first_gap,
+                layer_max_rel_err_bf16=figures["bfloat16"]["h_max"],
+                layer_median_rel_err_bf16=figures["bfloat16"]["h_med"],
+                layer_plain_max_rel_err_bf16=figures["bfloat16"]["plain_max"],
+                layer_kv_max_rel_err_bf16=figures["bfloat16"]["kv_max"],
+                layer_max_rel_err_f32=figures["float32"]["h_max"],
+                end_to_end_argmax_share=exact / len(gaps),
+                end_to_end_median_gap=float(np.median(gaps)))
+
+
+def lm_path(torch, np, model, seed):
+    """LM continuous batching: a ServeEngine of LM_SLOTS slots and
+    LM_MAX_SEQ positions serving LM_REQUESTS prompts from ``seed`` with
+    mixed budgets (one of 1, one of 0) on ``model``.  Launch counts are
+    reset just before the served run and read just after; layer 0 of every
+    decode step is read during it for ``check_engine_state``; then every
+    generated token is checked teacher-forced against ``forward``."""
+    from unittest import mock
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, dev = model.cfg, model.device
+    sync = torch.cuda.synchronize
+    rng = np.random.default_rng(seed)
+    plens = rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, LM_REQUESTS)
+    budgets = rng.integers(2, LM_MAX_NEW + 1, LM_REQUESTS)
+    budgets[3], budgets[7], budgets[11] = 1, 0, LM_MAX_NEW
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=int(b)) for i, (n, b) in enumerate(zip(plens, budgets))]
+
+    # warm-up outside the counted run: one prefill and one decode step
+    warm = torch.as_tensor(reqs[0].prompt[:64], device=dev)[None]
+    _, cache = tf.prefill(model, warm, max_seq=128)
+    tf.decode_step(model, cache, warm[:, -1], torch.tensor([warm.shape[1]], device=dev))
+    sync()
+    del cache
+
+    engine = ServeEngine(model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    prefill_ms, decode_ms = [], []
+    # layer 0 of each decode step: its output rows, and which request each
+    # slot holds at which position
+    h0_rows, kv0, layer0, live = {}, {}, [], []
+    layer_decode = tf.layer_decode
+
+    def record_layer0(cfg_, blk, *args):
+        out = layer_decode(cfg_, blk, *args)
+        if blk is model.layers[0]:
+            layer0.append(out)
+        return out
+
+    def timed(fn, out):
+        # each engine phase ends in a host read of its argmax, a device sync
+        def run(*args):
+            t = time.perf_counter()
+            r = fn(*args)
+            out.append((time.perf_counter() - t) * 1e3)
+            return r
+        return run
+
+    def decode():
+        live[:] = [(s, r, int(engine.lengths[s])) for s, r in enumerate(engine.active)
+                   if r is not None]
+        next_tokens = timed_decode()
+        h0 = layer0.pop()
+        for s, r, p in live:
+            h0_rows.setdefault(r.rid, []).append((p, h0[s]))
+        return next_tokens
+
+    engine._prefill = timed(engine._prefill, prefill_ms)
+    timed_decode = timed(engine._decode, decode_ms)
+    engine._decode = decode
+    for r in reqs:
+        engine.submit(r)
+    profile, profiled, kv_positions = None, None, 0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(tf, "layer_decode", record_layer0):
+        while True:
+            refill = engine.queue and any(r is None for r in engine.active)
+            if profile is None and not refill and engine.stats.steps >= 10:
+                profiled = len(decode_ms)
+                kv_positions = int(engine.lengths.sum()) + LM_SLOTS  # each attends len + 1
+                box = []
+                profile = profile_query(torch, f"[lm] one decode step ({LM_SLOTS} slots)",
+                                        lambda: box.append(engine.step()), top=10, warm=False)
+                n = box[0]
+            else:
+                n = engine.step()
+            # a request finished in this step: its slot's layer-0 rows, before
+            # the next step's refill reuses the slot
+            for s, r, p in live:
+                if engine.active[s] is not r:
+                    kv0[r.rid] = (engine.cache["k"][0, s, :p + 1].clone(),
+                                  engine.cache["v"][0, s, :p + 1].clone())
+            live.clear()
+            if n == 0 and not engine.queue:
+                break
+    serve_s = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = engine.stats
+    log(f"[lm] served {stats.requests_completed}/{LM_REQUESTS} requests, "
+        f"{stats.tokens_generated} tokens in {stats.steps} decode steps, {serve_s:.3f} s; "
+        f"launches {counts}")
+
+    served = [int(b) for b in budgets]
+    if stats.requests_completed != LM_REQUESTS:
+        raise AssertionError(f"[lm] {stats.requests_completed} of {LM_REQUESTS} completed")
+    if stats.tokens_generated != sum(served):
+        raise AssertionError(f"[lm] {stats.tokens_generated} tokens for budgets summing "
+                             f"to {sum(served)}")
+    for r in reqs:
+        if len(r.generated) != r.max_new_tokens:
+            raise AssertionError(f"[lm] request {r.rid}: {len(r.generated)} tokens for a "
+                                 f"budget of {r.max_new_tokens}")
+    if counts["decode_attention"] != cfg.n_layers * stats.steps:
+        raise AssertionError(f"[lm] K4 launched {counts['decode_attention']} times for "
+                             f"{cfg.n_layers} layers x {stats.steps} steps")
+
+    checks = check_engine_state(torch, np, model, reqs, h0_rows, kv0)
+    del h0_rows, kv0
+    checks.update(check_served_tokens(torch, np, model, reqs))
+
+    steady = [t for i, t in enumerate(decode_ms) if i != profiled]
+    step_us = float(np.mean(steady)) * 1e3
+    decode_tokens = stats.tokens_generated - len(prefill_ms)
+    k4_us = sum(t for key, t in profile["by_kernel"].items() if "decode_" in key
+                and "kernel" in key)
+    # least bytes of the profiled step: every weight but the embedding table
+    # (of which LM_SLOTS rows), and K and V of the positions each slot attends
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    esize = model.embed.element_size()
+    step_bytes = (weight_bytes - model.embed.numel() * esize + LM_SLOTS * cfg.d_model * esize
+                  + 2 * cfg.n_layers * kv_positions * cfg.n_kv_heads * cfg.head_dim * esize)
+    bound = step_bytes / PEAK_BYTES_PER_S * 1e3
+    rec = dict(
+        graph="lm", algorithm="serve", arch=cfg.name, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+        requests=LM_REQUESTS, steps=stats.steps, tokens=stats.tokens_generated,
+        decode_tokens=decode_tokens, serve_s=serve_s,
+        prefill_ms_per_request=float(np.mean(prefill_ms)),
+        prefill_ms=[round(t, 3) for t in prefill_ms],
+        prompt_lens=[int(n) for n in plens],
+        decode_ms_per_step=step_us / 1e3,
+        decode_ms_median=float(np.median(steady)),
+        decode_tokens_per_s=decode_tokens / (sum(decode_ms) / 1e3),
+        weight_bytes=weight_bytes, profiled_step_bytes=step_bytes,
+        profiled_step_bound_ms=bound,
+        profile_wall_us=profile["wall_us"], profile_busy_us=profile["busy_us"],
+        # against an unprofiled step: the profiler lengthens the step it records
+        decode_idle_share=1 - profile["busy_us"] / step_us,
+        profile_k4_us=k4_us, profile_k4_share=k4_us / profile["busy_us"],
+        k4_launches=counts["decode_attention"], **checks)
+    log(f"[lm] prefill {rec['prefill_ms_per_request']:.3f} ms per request (mean of "
+        f"{len(prefill_ms)}, prompts {LM_PROMPT_LEN[0]}-{LM_PROMPT_LEN[1]} tokens); decode "
+        f"{rec['decode_ms_per_step']:.3f} ms per step (median {rec['decode_ms_median']:.3f}; "
+        f"the profiled step's bytes bound {bound:.3f} ms: weights and "
+        f"{kv_positions} K/V positions per layer over {PEAK_BYTES_PER_S / 1e12} TB/s), "
+        f"{rec['decode_tokens_per_s']:.1f} tokens/s in the decode loop; the profiled step's "
+        f"{profile['busy_us']:.1f} us of device time in the mean unprofiled step's "
+        f"{step_us:.1f} us: idle share {rec['decode_idle_share']:.3f}; K4 {k4_us:.1f} us "
+        f"of it ({rec['profile_k4_share']:.3f})")
+    return [rec], counts
+
+
+def profile_query(torch, label, fn, top: int = 8, warm: bool = True) -> dict:
+    """One query under torch.profiler (after one unprofiled call when
+    ``warm``): device busy time against the host wall clock, and the
+    kernels that take the device time.  Returns wall and busy microseconds
+    and the device time by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -686,6 +1167,8 @@ def profile_query(torch, label, fn, top: int = 8) -> None:
         f"kernel launches")
     for e in kernels[:top]:
         log(f"  {e.self_device_time_total:10.1f} us  x{e.count:<5d} {e.key[:90]}")
+    return dict(wall_us=wall_us, busy_us=busy_us,
+                by_kernel={e.key: e.self_device_time_total for e in kernels})
 
 
 def main(argv=None) -> int:
@@ -704,7 +1187,10 @@ def main(argv=None) -> int:
     from repro_torch.core import plan_query
     from repro_torch.data.generators import power_law_temporal_graph, transit_temporal_graph
     from repro_torch.engine.backends import segments_for
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import build, launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels import decode_attention as k4
+    from repro_torch.models.transformer import init_lm
     from repro_torch.kernels import segment_spmm as spmm
     from repro_torch.kernels import temporal_edgemap as tem
 
@@ -761,13 +1247,31 @@ def main(argv=None) -> int:
         records += analytics_path(torch, np, name, g, tger, fields, windows["narrow"],
                                   sources)
     counts = launch_counts()
-    log(f"main path launches: {counts}")
+    log(f"graph paths launches: {counts}")
     if failures:
         raise AssertionError(f"{len(failures)} checks failed:\n" + "\n".join(failures))
+
+    # -- K4 at the LM's decode shape; the LM serving path, counted ------------
+    cfg = get_arch(LM_ARCH).cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 2)
+    rows.append(decode_phases(torch, np, cfg, gen, k4))
+    gen.manual_seed(args.seed)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}; {cfg.n_params} parameters; init from seed {args.seed} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    lm_records, lm_counts = lm_path(torch, np, model, args.seed)
+    del model
+    records += lm_records
+    counts["decode_attention"] = lm_counts["decode_attention"]
     for row in rows:
         row["launches"] = counts[row["name"]]
         if row["launches"] <= 0:
-            raise AssertionError(f"{row['name']} was never launched on the main path")
+            raise AssertionError(f"{row['name']} was never launched on its path")
     for rec in records:
         log("query " + json.dumps(rec, sort_keys=True))
 

@@ -40,6 +40,11 @@ SIGNATURES = {
         # tile_v, block_e, d, n_windows, stream
         "segment_spmm_tiles_launch": [_P] * 5 + [_I] * 6 + [_P],
     },
+    "decode_attention": {
+        # q, k_cache, v_cache, cache_len, part, out, B, S, KH, G, Dh, chunk,
+        # scale, dtype, vec, stream
+        "decode_attention_launch": [_P] * 6 + [_I] * 6 + [ctypes.c_float] + [_I] * 2 + [_P],
+    },
 }
 
 _LOCK = threading.Lock()

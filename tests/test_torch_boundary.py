@@ -9,9 +9,12 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import get_arch
 from repro_torch.core.temporal_graph import from_edges
 from repro_torch.data import generators as tgen
 from repro_torch.device import resolve_device
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models.transformer import init_cache, init_lm, params_from_numpy
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -28,9 +31,11 @@ def test_port_imports_no_jax():
         "import repro_torch.core.algorithms.kcore\n"
         "import repro_torch.core.algorithms.reachability\n"
         "import repro_torch.core.algorithms.centrality\n"
+        "import repro_torch.configs, repro_torch.models.transformer\n"
+        "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "from repro_torch.kernels import launch_counts\n"
         "assert set(launch_counts()) == {'segment_min_tiles',\n"
-        "    'temporal_relax_min_tiles', 'segment_spmm_tiles'}\n"
+        "    'temporal_relax_min_tiles', 'segment_spmm_tiles', 'decode_attention'}\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -50,11 +55,25 @@ def test_port_imports_no_jax():
     lambda: tgen.synthetic_temporal_graph(20, 50),
     lambda: resolve_device(),
     lambda: repro_torch.frontier_from_sources(5, [1, 3]),
+    lambda: init_cache(get_arch("smollm-135m").smoke_cfg, 1, 8),
+    lambda: init_lm(get_arch("smollm-135m").smoke_cfg, torch.Generator()),
+    lambda: params_from_numpy({}, get_arch("smollm-135m").smoke_cfg),
+    lambda: launch_serve.main(["--requests", "1", "--max-new", "1"]),
 ])
 def test_entry_points_need_a_card_or_an_explicit_device(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+
+
+def test_init_lm_needs_the_generator_on_its_device():
+    """A CPU generator does not quietly build the model on the CPU: the
+    weights go to the named device, and a generator elsewhere raises."""
+    cfg = get_arch("smollm-135m").smoke_cfg
+    with pytest.raises(ValueError, match="generator"):
+        init_lm(cfg, torch.Generator(), device="cuda")
+    model = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert model.device == torch.device("cpu")
 
 
 def test_explicit_cpu_device_and_downstream_follows():

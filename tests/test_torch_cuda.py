@@ -3,7 +3,11 @@
 Every test here is marked ``cuda`` and skips without a card.  Integer
 kernels (K1, K2) are held to bit-identity; the float sum kernel (K3) adds
 with atomics in no fixed order and is held within rtol/atol 2e-4, the JAX
-kernel sweep's tolerance.  The file
+kernel sweep's tolerance.  The flash-decode kernel (K4) is held to its
+plain version within rtol/atol 2e-5 in float32 (the reference's kernel
+tolerance) and 2**-6 in bfloat16 (the plain version rounds q * scale and
+the probabilities to bfloat16 as the reference does, the kernel keeps
+them in float32; both round the output once).  The file
 imports no JAX (the machine with the card has none); the plain versions it
 compares against are held to the JAX kernels by ``test_torch_kernels.py``.
 Run on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -24,6 +28,9 @@ from repro_torch.engine.backends import segments_for
 from repro_torch.kernels import launch_counts, ops, reset_launch_counts
 from repro_torch.kernels import segment_spmm as spmm
 from repro_torch.kernels import temporal_edgemap as tem
+from repro_torch.kernels import decode_attention as k4
+from repro_torch.models import transformer as ttf
+from repro_torch.serve.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -217,3 +224,127 @@ def test_bfs_and_cc_on_card_match_cpu(cuda):
     (h0, a0, l0, b0, c0), (h1, a1, l1, b1, c1) = runs
     assert torch.equal(h0, h1) and torch.equal(a0, a1) and torch.equal(l0, l1)
     assert (b0, c0) == (0, 0) and b1 > 0 and c1 > 0
+
+
+# -- K4: decode_attention ------------------------------------------------------
+
+DECODE_SHAPES = [  # B, S, H, KH, Dh: the JAX kernel tests, one-element loads, phi4-mini
+    (2, 64, 4, 2, 16),
+    (3, 100, 8, 4, 32),
+    (1, 33, 2, 1, 8),
+    (2, 128, 8, 8, 16),
+    (2, 40, 4, 2, 12),       # bfloat16 rows not a 16-byte multiple: scalar loads
+    (8, 2048, 24, 8, 128),   # phi4-mini's decode shape at 2048 positions
+]
+K4_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+          torch.bfloat16: dict(rtol=2**-6, atol=2**-6)}
+
+
+def _decode_inputs(B, S, H, KH, Dh, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+               .to(device=device, dtype=dtype)
+               for shape in ((B, H, Dh), (B, S, KH, Dh), (B, S, KH, Dh)))
+    lens = torch.as_tensor(rng.integers(1, S + 1, B).astype(np.int32), device=device)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("B,S,H,KH,Dh", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda, B, S, H, KH, Dh, dtype):
+    q, k, v, lens = _decode_inputs(B, S, H, KH, Dh, dtype, S + Dh, cuda)
+    want = k4.decode_attention_plain(q, k, v, lens)
+    before = k4.decode_attention.launches
+    got = k4.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert k4.decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **K4_TOL[dtype])
+
+
+def test_decode_attention_kernel_respects_lengths(cuda):
+    """Entries past cache_len do not reach the output; a zero-length row
+    gives zeros."""
+    q, k, v, _ = _decode_inputs(2, 300, 4, 2, 16, torch.float32, 9, cuda)
+    lens = torch.tensor([0, 10], dtype=torch.int32, device=cuda)
+    out1 = k4.decode_attention(q, k, v, lens)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 10:] = 99.0
+    v2[:, 10:] = -99.0
+    out2 = k4.decode_attention(q, k2, v2, lens)
+    assert (out1[0] == 0).all()
+    torch.testing.assert_close(out1, out2, rtol=0, atol=1e-6)
+
+
+def test_decode_attention_wrapper_rejects_bad_input(cuda):
+    q, k, v, lens = _decode_inputs(2, 16, 18, 2, 16, torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="group"):  # G = 9 > 8
+        k4.decode_attention(q, k, v, lens)
+    q, k, v, lens = _decode_inputs(2, 16, 4, 2, 256, torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="d_head"):
+        k4.decode_attention(q, k, v, lens)
+    q, k, v, lens = _decode_inputs(2, 16, 4, 2, 16, torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, lens)
+    with pytest.raises(TypeError):
+        k4.decode_attention(q.half(), k.half(), v.half(), lens)
+
+
+def _smoke_lm(tied: bool):
+    cfg = ttf.LMConfig(name="smoke", n_layers=2, d_model=48, n_heads=4,
+                       n_kv_heads=1 if tied else 2, d_head=16, d_ff=128, vocab=128,
+                       dtype=torch.float32, q_chunk=16, kv_chunk=16, tie_embeddings=tied)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(7)
+    return ttf.init_lm(cfg, gen, "cpu")
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_decode_step_on_card_matches_cpu(cuda, tied):
+    """prefill and one ragged decode step, card (K4) against CPU (plain),
+    float32 matmuls in full precision: logits within rtol 1e-5 plus 1e-4 of
+    the largest (the CPU tests' tolerance against JAX, doubled for cuBLAS's
+    summation order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _smoke_lm(tied)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, 128, (3, 32)).astype(np.int32))
+    nxt = torch.as_tensor(rng.integers(0, 128, 3).astype(np.int32))
+    lens = torch.tensor([32, 17, 1], dtype=torch.int32)
+    out = []
+    for dev in ("cpu", cuda):
+        m = model.to(dev)
+        reset_launch_counts()
+        _, cache = ttf.prefill(m, toks.to(dev), max_seq=48)
+        logits, cache = ttf.decode_step(m, cache, nxt.to(dev), lens.to(dev))
+        torch.cuda.synchronize()
+        out.append((logits.cpu(), cache["k"].cpu(), launch_counts()["decode_attention"]))
+    (l0, k0, n0), (l1, k1, n1) = out
+    assert (n0, n1) == (0, model.cfg.n_layers)
+    for got, want in ((l1, l0), (k1, k0)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * float(want.abs().max()))
+
+
+def test_serve_engine_on_card_matches_cpu(cuda):
+    """The engine on the card emits the CPU run's tokens, and launches K4
+    once per layer per decode step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _smoke_lm(False)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 128, n).astype(np.int32) for n in (5, 16, 9, 12, 7)]
+    budgets = [6, 1, 0, 9, 4]
+    runs = []
+    for dev in ("cpu", cuda):
+        engine = ServeEngine(model.to(dev), batch_slots=2, max_seq=32)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=b)
+                for i, (p, b) in enumerate(zip(prompts, budgets))]
+        for r in reqs:
+            engine.submit(r)
+        reset_launch_counts()
+        stats = engine.run()
+        runs.append(([r.generated for r in reqs], stats,
+                     launch_counts()["decode_attention"]))
+    (t0, s0, n0), (t1, s1, n1) = runs
+    assert t1 == t0 and s1 == s0
+    assert s1.tokens_generated == sum(budgets) and s1.requests_completed == 5
+    assert n0 == 0 and n1 == model.cfg.n_layers * s1.steps
