@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--compare DIR]
 
 1. Requires a CUDA card; prints its name and power limit.
 2. Builds the kernels of ``src/repro_torch/kernels/csrc`` with nvcc.
 3. Kernel phases, at the main path's tile-layout shapes: each kernel
    against its plain PyTorch version on the card (K1/K2 bit-identical, the
    float-sum K3 within rtol/atol 2e-4), timed beside the plain version, one
-   PyTorch library call and the memory-bytes bound.
+   PyTorch library call and the memory-bytes bound; K3 at the power-law and
+   the transit layouts.
 4. The main path at the shape of SNAP's wiki-talk-temporal (1,140,149
    vertices, 7,833,140 temporal edges), generated from ``--seed`` as a
    power-law and a transit graph: build_tger -> plan_query -> earliest
@@ -22,7 +23,11 @@
 5. K4 (flash-decode attention) at phi4-mini-3.8b's decode shape (8 rows,
    2048 positions, ragged lengths, GQA group 3, d_head 128) in bfloat16 and
    float32 against its plain version, timed beside it, beside
-   scaled_dot_product_attention and beside its bytes bound.
+   scaled_dot_product_attention and beside its bytes bound: warm (one set of
+   caches), and in bfloat16 cold (four sets in turn, past the L2) at those
+   lengths and at serving lengths (16-576).  With ``--compare DIR``, K3 and
+   K4 as built from the sources in DIR (the kernels before their redesign)
+   are timed in turns with these (old, new, new, old).
 6. LM continuous batching at phi4-mini-3.8b's published widths (32 layers,
    bfloat16, random weights from ``--seed``): a ServeEngine of 8 slots x
    2048 positions serves 16 seeded requests (prompts of 16-512 tokens,
@@ -39,6 +44,7 @@ of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -56,6 +62,7 @@ WIKI_TALK_VERTICES = 1_140_149
 WIKI_TALK_EDGES = 7_833_140
 DEGREE_CUTOFF = 2048  # the paper's TGER indexing cutoff
 TIMING_ITERS = 20     # CUDA-event timed calls per kernel measurement
+SLEEP_CYCLES_PER_S = 2e9  # at least the SM clock (H100 SXM boost 1.98 GHz)
 INF = 2**31 - 1
 PAGERANK_ITERS = 100  # paper §6.1
 # a PageRank view this many times the graph's edges runs fewer iterations
@@ -82,6 +89,11 @@ LM_SLOTS, LM_MAX_SEQ = 8, 2048
 LM_REQUESTS = 16
 LM_PROMPT_LEN = (16, 512)  # <= q_chunk: a longer prompt must be a multiple of it
 LM_MAX_NEW = 64
+# K4's cold timings rotate through this many sets of bfloat16 caches at the
+# decode shape (4 x 67 MB, past the card's 50 MB L2); serving lengths are a
+# prompt of LM_PROMPT_LEN plus up to LM_MAX_NEW new tokens
+K4_SETS = 4
+K4_SERVING_LENGTHS = (LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + LM_MAX_NEW)
 # Checks of the served tokens (``check_served_tokens``).  The reference's
 # init (normal / sqrt(shape[-2]): wq scales by 1/sqrt(H), not 1/sqrt(d))
 # gives attention scores a spread of ~220 at these widths, so the softmax is
@@ -124,9 +136,38 @@ LM_STATE_H_MAX = 0.25
 LM_F32_REQUESTS = 4
 
 
+def ptxas_report(text: str):
+    """(kernel instance, "registers; spills; shared memory") for each entry
+    function in nvcc's -Xptxas -v output; template arguments as
+    <type, ints...> from the mangled name."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"([a-z_]+_kernel)", mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            dtype = ("bf16" if "__nv_bfloat16" in mangled else
+                     "f32" if re.search(r"_kernelIf", mangled) else None)
+            name = (base.group(1) if base else mangled) + (
+                f"<{', '.join(([dtype] if dtype else []) + args)}>" if args else "")
+        elif "spill" in line and name:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append((name, line.split(":", 1)[1].strip() + "; " + spill))
+            name, spill = None, ""
+    return out
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compare", metavar="DIR",
+                   help="also time K3 and K4 as built from DIR/segment_spmm.cu and "
+                        "DIR/decode_attention.cu, their sources before the redesign "
+                        "(C entry points as PARENT_SIGNATURES), in turns with these")
     return p.parse_args(argv)
 
 
@@ -134,13 +175,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, iters: int = TIMING_ITERS, warmup: int = 3) -> float:
-    """Mean milliseconds per call from CUDA events around ``iters`` calls."""
+def cuda_ms(torch, fn, iters: int = TIMING_ITERS, warmup: int = 3,
+            prefill: bool = True) -> float:
+    """Mean device milliseconds per call, from CUDA events around ``iters``
+    calls.  With ``prefill`` the calls are queued behind a sleep kernel that
+    outlasts their enqueue (twice the host time of the fastest warm-up call
+    per call), so the events time the device running them back to back and
+    not the host's launch overhead; without it a fast kernel's time is
+    paced by its host overhead."""
+    host_s = float("inf")
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host_s = min(host_s, time.perf_counter() - t0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if prefill:
+        torch.cuda._sleep(int(max(2 * iters * host_s, 1e-3) * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -153,6 +205,94 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_pair(torch, new, old=None):
+    """(ms of ``new``, ms of ``old``, the four times): with ``old``, both
+    are timed in turns old, new, new, old, and each time is the mean of its
+    two turns; without it, ``new`` alone and (ms, None, None)."""
+    if old is None:
+        return cuda_ms(torch, new), None, None
+    turns = [cuda_ms(torch, old), cuda_ms(torch, new), cuda_ms(torch, new),
+             cuda_ms(torch, old)]
+    return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, turns
+
+
+def rotating(fn, sets):
+    """A function that calls ``fn(*set)`` on the next of ``sets`` each time:
+    each call finds its inputs out of L2 when the sets together exceed it."""
+    calls = itertools.count()
+    return lambda: fn(*sets[next(calls) % len(sets)])
+
+
+# ``--compare DIR``: K3 and K4 as they were before their redesign, built
+# from DIR/segment_spmm.cu and DIR/decode_attention.cu (not in the
+# repository), timed in turns with this checkout's kernels.  Their C entry
+# points: K3 adds into a zero-filled float64 output, rounded to float32
+# afterwards; K4 takes float32 partial scratch for ceil(S / 128) splits.
+PARENT_SIGNATURES = {
+    "segment_spmm": ("segment_spmm_tiles_launch", 5, 6),
+    "decode_attention": ("decode_attention_launch", 6, 6),
+}
+PARENT_K4_CHUNK = 128
+
+
+def build_parent(src_dir):
+    """Compile the two earlier sources with the checkout's nvcc flags and
+    bind their entry points; returns stem -> function."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for stem, (fn, n_ptr, n_int) in PARENT_SIGNATURES.items():
+        lib_path = build.BUILD_DIR / f"parent-{stem}.so"
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
+                               str(Path(src_dir) / f"{stem}.cu")],
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the earlier {stem}.cu:\n{proc.stderr}")
+        f = getattr(ctypes.CDLL(str(lib_path)), fn)
+        f.argtypes = ([P] * n_ptr + [I] * n_int + [P] if stem == "segment_spmm" else
+                      [P] * n_ptr + [I] * n_int + [ctypes.c_float] + [I] * 2 + [P])
+        f.restype = I
+        fns[stem] = f
+    return fns
+
+
+def parent_k3(torch, parent, dst_local, msgs, valid, block_tile, nt, *, tile_v, block_e):
+    w = msgs.shape[0] if msgs.dim() == 3 else 1
+    out = torch.zeros((w, nt, tile_v, msgs.shape[-1]), dtype=torch.float64,
+                      device=msgs.device)
+    rc = parent["segment_spmm"](
+        dst_local.data_ptr(), msgs.data_ptr(), valid.data_ptr(), block_tile.data_ptr(),
+        out.data_ptr(), block_tile.shape[0], nt, tile_v, block_e, msgs.shape[-1], w,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"earlier K3: launch failed (cudaError {rc})")
+    out = out.to(torch.float32)
+    return out if msgs.dim() == 3 else out[0]
+
+
+def parent_k4(torch, parent, q, k, v, lens):
+    import ctypes
+    import math
+
+    B, H, Dh = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    part = torch.empty((B, KH, -(-S // PARENT_K4_CHUNK), H // KH, Dh + 2),
+                       dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    rc = parent["decode_attention"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), part.data_ptr(),
+        out.data_ptr(), B, S, KH, H // KH, Dh, PARENT_K4_CHUNK,
+        ctypes.c_float(1.0 / math.sqrt(Dh)), int(q.dtype == torch.bfloat16),
+        16 // q.element_size(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"earlier K4: launch failed (cudaError {rc})")
+    return out
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -296,14 +436,12 @@ def close_err(torch, got, want, rtol, atol) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def spmm_phases(torch, np, g, plan, seed, spmm, ops, segments_for):
-    """K3 at the power-law layout's shapes, D = 1 (PageRank's message) for
-    one window and W = 8, and D = 130 through ``ops.spmm`` on a layout of a
-    few thousand edges (the feature-chunk path), each against its plain
-    version.  Messages are positive, as PageRank's are."""
+def spmm_layout_timings(torch, name, g, plan, gen, spmm, segments_for, parent):
+    """K3 at one graph's tile layout, D = 1 (PageRank's message), for one
+    window and W = 8, each against its plain version and timed beside it,
+    beside ``index_add_`` and (with ``parent``) beside the kernel before its
+    redesign, in turns.  Messages are positive, as PageRank's are."""
     dev = g.device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed + 1)
     tiles = segments_for(plan, g.dst, use_layout=True).tiles
     dst_local, lane, block_tile = tiles.dst_local, tiles.lane, plan.layout_block_tile
     ep, nb, nt, tv, be = (lane.shape[0], block_tile.shape[0], plan.n_tiles,
@@ -315,29 +453,49 @@ def spmm_phases(torch, np, g, plan, seed, spmm, ops, segments_for):
         lead = (W,) if W > 1 else ()
         msgs = torch.rand(lead + (ep, 1), generator=gen, device=dev)
         valid = lane.expand(lead + (ep,)).contiguous()
-        got = spmm.segment_spmm_tiles(dst_local, msgs, valid, block_tile, nt, **kw)
-        again = spmm.segment_spmm_tiles(dst_local, msgs, valid, block_tile, nt, **kw)
-        want = spmm.segment_spmm_tiles_plain(dst_local, msgs, valid, block_tile, nt, **kw)
+        args = (dst_local, msgs, valid, block_tile, nt)
+        got = spmm.segment_spmm_tiles(*args, **kw)
+        again = spmm.segment_spmm_tiles(*args, **kw)
+        want = spmm.segment_spmm_tiles_plain(*args, **kw)
         err = close_err(torch, got, want, **SPMM_TOL)
         rel_err = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
         rerun = float((got - again).abs().max())
         rows = (torch.arange(W, device=dev)[:, None] * nt * tv + glob[None, :]).reshape(-1)
         masked = torch.where(valid[..., None] != 0, msgs, 0.0).reshape(-1, 1)
         lib_out = torch.zeros((W * nt * tv, 1), device=dev)
+        old = None
+        if parent:
+            close_err(torch, parent_k3(torch, parent, *args, **kw), want, **SPMM_TOL)
+            old = lambda: parent_k3(torch, parent, *args, **kw)  # noqa: E731
+        ms, parent_ms, turns = timed_pair(
+            torch, lambda: spmm.segment_spmm_tiles(*args, **kw), old)
         rec = dict(
-            max_abs_err=err, max_rel_err=rel_err, rerun_max_abs_diff=rerun,
-            ms=cuda_ms(torch, lambda: spmm.segment_spmm_tiles(
-                dst_local, msgs, valid, block_tile, nt, **kw)),
-            plain_ms=cuda_ms(torch, lambda: spmm.segment_spmm_tiles_plain(
-                dst_local, msgs, valid, block_tile, nt, **kw)),
+            max_abs_err=err, max_rel_err=rel_err, rerun_max_abs_diff=rerun, ms=ms,
+            plain_ms=cuda_ms(torch, lambda: spmm.segment_spmm_tiles_plain(*args, **kw)),
             library_ms=cuda_ms(torch, lambda: lib_out.index_add_(0, rows, masked)),
         )
+        if parent:
+            rec.update(parent_ms=parent_ms, ab_turns_ms=turns)
         n_valid = int((valid != 0).sum())
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             4 * ep + 8 * W * ep + 4 * nb + 4 * W * nt * tv, n_valid)
-        log(f"K3 segment_spmm_tiles [W={W}, {ep}, D=1]: within rtol/atol 2e-4 "
+        log(f"K3 segment_spmm_tiles [{name}, W={W}, {ep}, D=1]: within rtol/atol 2e-4 "
             f"of plain; {rec}")
         out[W] = rec
+    return out
+
+
+def spmm_phases(torch, np, layouts, seed, spmm, ops, segments_for, parent=None):
+    """K3 at the power-law and the transit layouts (``layouts``: name ->
+    (graph, tiled plan)), and D = 130 through ``ops.spmm`` on a layout of a
+    few thousand edges (the feature-chunk path), each against its plain
+    version."""
+    dev = layouts["power_law"][0].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    timings = {name: spmm_layout_timings(torch, name, g, plan, gen, spmm, segments_for,
+                                         parent)
+               for name, (g, plan) in layouts.items()}
 
     # D = 130 through ops.spmm: 48 KB of shared memory holds 48 float64
     # columns of a 128-slot tile, so D = 130 takes 3 feature chunks on grid z
@@ -364,12 +522,15 @@ def spmm_phases(torch, np, g, plan, seed, spmm, ops, segments_for):
     log(f"K3 through ops.spmm [{n_e} edges, {lay.n_edges_padded} slots, D={d}, "
         f"tile_v 128: 3 feature chunks]: within rtol/atol 2e-4 of plain, "
         f"max |diff| {err:.3g}")
+    pl = timings["power_law"]
     row = dict(name="segment_spmm_tiles", route="cuda",
                source="src/repro_torch/kernels/csrc/segment_spmm.cu",
                replaces="src/repro/kernels/segment_spmm.py:55",
-               deterministic=False, **out[1], windowed_w8=out[8],
+               deterministic=False, **pl[1], windowed_w8=pl[8],
+               transit=dict(w1=timings["transit"][1], w8=timings["transit"][8]),
                ops_spmm_d130_max_abs_err=err)
-    row["max_abs_err"] = max(out[1]["max_abs_err"], out[8]["max_abs_err"], err)
+    row["max_abs_err"] = max([err] + [t[w]["max_abs_err"] for t in timings.values()
+                                      for w in (1, 8)])
     return row
 
 
@@ -736,59 +897,113 @@ def main_path(torch, np, name, g, tger, fields, windows, sources):
     return records
 
 
-def decode_phases(torch, np, cfg, gen, k4):
-    """K4 at the LM's decode shape (LM_SLOTS rows, LM_MAX_SEQ positions,
-    ragged lengths in [1, LM_MAX_SEQ]), bfloat16 (the serving type) and
-    float32, inputs drawn from ``gen`` on its device: each against its plain
-    version (K4_TOL), timed beside it and beside one library call,
-    scaled_dot_product_attention with a boolean length mask and GQA, on the
-    same inputs (K and V in its [B, KH, S, Dh] layout, made outside the
-    timing)."""
+def decode_phases(torch, np, cfg, gen, k4, parent=None):
+    """K4 at the LM's decode shape (LM_SLOTS rows, LM_MAX_SEQ positions),
+    inputs drawn from ``gen`` on its device, each against its plain version
+    on float32 copies (K4_TOL), timed beside scaled_dot_product_attention
+    (boolean length mask, GQA; K and V in its [B, KH, S, Dh] layout, made
+    outside the timing) and the bytes bound, and with ``parent`` beside the
+    kernel before its redesign, in turns:
+    - bfloat16 (the serving type) and float32 at ragged lengths in
+      [1, LM_MAX_SEQ], on one set of caches (warm: their valid part fits
+      the 50 MB L2), as timed since the kernel's first version;
+    - bfloat16 cold, rotating through K4_SETS sets of caches, at the same
+      lengths and at serving lengths (K4_SERVING_LENGTHS), as a decode step
+      meets every layer's cache."""
     import torch.nn.functional as F
 
     dev = gen.device
     B, S, KH, Dh = LM_SLOTS, LM_MAX_SEQ, cfg.n_kv_heads, cfg.head_dim
     H = cfg.n_heads
+
+    def draw(dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((B, H, Dh), (B, S, KH, Dh), (B, S, KH, Dh)))
+
+    def length_mask(lens):
+        return (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+
+    def sdpa(q, ks, vs, mask):
+        return F.scaled_dot_product_attention(q[:, :, None, :], ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def bound(lens, esize):
+        # K and V up to each row's length, q and o once, the lengths
+        n_valid = int(lens.sum())
+        return bound_ms(2 * n_valid * KH * Dh * esize + 2 * B * H * Dh * esize + 4 * B,
+                        4 * n_valid * H * Dh)
+
+    def checked(q, k, v, lens, name):
+        want = k4.decode_attention_plain(q.float(), k.float(), v.float(), lens).to(q.dtype)
+        err = close_err(torch, k4.decode_attention(q, k, v, lens), want, **K4_TOL[name])
+        if parent:
+            close_err(torch, parent_k4(torch, parent, q, k, v, lens), want, **K4_TOL[name])
+        return err, want
+
     lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
-    n_valid = int(lens.sum())
-    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    mask = length_mask(lens)
     recs = {}
     for name in ("bfloat16", "float32"):
         dtype = getattr(torch, name)
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                   for shape in ((B, H, Dh), (B, S, KH, Dh), (B, S, KH, Dh)))
+        q, k, v = draw(dtype)
+        err, want = checked(q, k, v, lens, name)
         got = k4.decode_attention(q, k, v, lens)
-        want = k4.decode_attention_plain(q.float(), k.float(), v.float(), lens).to(dtype)
-        err = close_err(torch, got, want, **K4_TOL[name])
         typed = k4.decode_attention_plain(q, k, v, lens)
-        qs = q[:, :, None, :]
         ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-
-        def library():
-            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
-
-        lib_err = close_err(torch, library()[:, :, 0], want, **LIBRARY_TOL[name])
-        esize = q.element_size()
+        lib_err = close_err(torch, sdpa(q, ks, vs, mask)[:, :, 0], want, **LIBRARY_TOL[name])
+        old = (lambda: parent_k4(torch, parent, q, k, v, lens)) if parent else None
+        ms, parent_ms, turns = timed_pair(torch, lambda: k4.decode_attention(q, k, v, lens),
+                                          old)
         rec = dict(
             max_abs_err=err, plain_typed_max_abs_err=float((got.double() - typed.double())
                                                            .abs().max()),
-            library_max_abs_err=lib_err,
-            ms=cuda_ms(torch, lambda: k4.decode_attention(q, k, v, lens)),
+            library_max_abs_err=lib_err, ms=ms,
+            host_paced_ms=cuda_ms(torch, lambda: k4.decode_attention(q, k, v, lens),
+                                  prefill=False),
             plain_ms=cuda_ms(torch, lambda: k4.decode_attention_plain(q, k, v, lens)),
-            library_ms=cuda_ms(torch, library),
+            library_ms=cuda_ms(torch, lambda: sdpa(q, ks, vs, mask)),
         )
-        # K and V up to each row's length, q and o once, the lengths
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            2 * n_valid * KH * Dh * esize + 2 * B * H * Dh * esize + 4 * B,
-            4 * n_valid * H * Dh)
+        if parent:
+            rec.update(parent_ms=parent_ms, ab_turns_ms=turns)
+        rec["bound_ms"], rec["bound_by"] = bound(lens, q.element_size())
         log(f"K4 decode_attention [B={B}, S={S}, KH={KH}, G={H // KH}, Dh={Dh}, {name}, "
-            f"{n_valid} valid positions]: within rtol {K4_TOL[name]['rtol']:.3g} / atol "
-            f"{K4_TOL[name]['atol']:.3g} of the plain version on float32 copies; {rec}")
+            f"{int(lens.sum())} valid positions, warm]: within rtol "
+            f"{K4_TOL[name]['rtol']:.3g} / atol {K4_TOL[name]['atol']:.3g} of the plain "
+            f"version on float32 copies; {rec}")
         recs[name] = rec
+        del q, k, v, ks, vs
+
+    # bfloat16, cold: K4_SETS sets of caches, used in turn
+    sets = []
+    for _ in range(K4_SETS):
+        q, k, v = draw(torch.bfloat16)
+        sets.append((q, k, v, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()))
+    serve = torch.randint(K4_SERVING_LENGTHS[0], K4_SERVING_LENGTHS[1] + 1, (B,),
+                          generator=gen, device=dev, dtype=torch.int32)
+    for label, ls in (("cold", lens), ("serving_cold", serve)):
+        m = length_mask(ls)
+        err, _ = checked(*sets[0][:3], ls, "bfloat16")
+        old = (rotating(lambda q, k, v, ks, vs: parent_k4(torch, parent, q, k, v, ls), sets)
+               if parent else None)
+        ms, parent_ms, turns = timed_pair(
+            torch, rotating(lambda q, k, v, ks, vs: k4.decode_attention(q, k, v, ls), sets),
+            old)
+        rec = dict(max_abs_err=err, ms=ms, valid_positions=int(ls.sum()),
+                   library_ms=cuda_ms(torch, rotating(
+                       lambda q, k, v, ks, vs: sdpa(q, ks, vs, m), sets)))
+        if parent:
+            rec.update(parent_ms=parent_ms, ab_turns_ms=turns)
+        rec["bound_ms"], rec["bound_by"] = bound(ls, 2)
+        log(f"K4 decode_attention [bfloat16, {label}: {K4_SETS} sets of caches in turn, "
+            f"lengths {ls.tolist()}]: within rtol 2**-7 / atol 2**-12 of the plain version "
+            f"on float32 copies; {rec}")
+        recs["bfloat16"][label] = rec
+    del sets
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:82",
-                shape=dict(B=B, S=S, KH=KH, G=H // KH, Dh=Dh, valid_positions=n_valid),
+                shape=dict(B=B, S=S, KH=KH, G=H // KH, Dh=Dh,
+                           valid_positions=int(lens.sum())),
                 **recs["bfloat16"], float32=recs["float32"],
                 library_note="scaled_dot_product_attention, boolean length mask, "
                              "enable_gqa")
@@ -1105,8 +1320,9 @@ def lm_path(torch, np, model, seed):
     steady = [t for i, t in enumerate(decode_ms) if i != profiled]
     step_us = float(np.mean(steady)) * 1e3
     decode_tokens = stats.tokens_generated - len(prefill_ms)
-    k4_us = sum(t for key, t in profile["by_kernel"].items() if "decode_" in key
-                and "kernel" in key)
+    k4_keys = [key for key in profile["by_kernel"] if "decode_" in key and "kernel" in key]
+    k4_us = sum(profile["by_kernel"][key] for key in k4_keys)
+    k4_profile_launches = sum(profile["count_by_kernel"][key] for key in k4_keys)
     # least bytes of the profiled step: every weight but the embedding table
     # (of which LM_SLOTS rows), and K and V of the positions each slot attends
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -1130,6 +1346,7 @@ def lm_path(torch, np, model, seed):
         # against an unprofiled step: the profiler lengthens the step it records
         decode_idle_share=1 - profile["busy_us"] / step_us,
         profile_k4_us=k4_us, profile_k4_share=k4_us / profile["busy_us"],
+        profile_k4_launches=k4_profile_launches,
         k4_launches=counts["decode_attention"], **checks)
     log(f"[lm] prefill {rec['prefill_ms_per_request']:.3f} ms per request (mean of "
         f"{len(prefill_ms)}, prompts {LM_PROMPT_LEN[0]}-{LM_PROMPT_LEN[1]} tokens); decode "
@@ -1139,7 +1356,7 @@ def lm_path(torch, np, model, seed):
         f"{rec['decode_tokens_per_s']:.1f} tokens/s in the decode loop; the profiled step's "
         f"{profile['busy_us']:.1f} us of device time in the mean unprofiled step's "
         f"{step_us:.1f} us: idle share {rec['decode_idle_share']:.3f}; K4 {k4_us:.1f} us "
-        f"of it ({rec['profile_k4_share']:.3f})")
+        f"of it ({rec['profile_k4_share']:.3f}) in {k4_profile_launches} launches")
     return [rec], counts
 
 
@@ -1168,7 +1385,8 @@ def profile_query(torch, label, fn, top: int = 8, warm: bool = True) -> dict:
     for e in kernels[:top]:
         log(f"  {e.self_device_time_total:10.1f} us  x{e.count:<5d} {e.key[:90]}")
     return dict(wall_us=wall_us, busy_us=busy_us,
-                by_kernel={e.key: e.self_device_time_total for e in kernels})
+                by_kernel={e.key: e.self_device_time_total for e in kernels},
+                count_by_kernel={e.key: e.count for e in kernels})
 
 
 def main(argv=None) -> int:
@@ -1203,16 +1421,18 @@ def main(argv=None) -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_STEMS)) as pool:  # one nvcc per source
+    with ThreadPoolExecutor(len(KERNEL_STEMS) + 1) as pool:  # one nvcc per source
+        earlier = pool.submit(build_parent, args.compare) if args.compare else None
         list(pool.map(build.compile_source, KERNEL_STEMS))
+        parent = earlier.result() if earlier else None
     for stem in KERNEL_STEMS:
         build.library(stem)
     log(f"build: {', '.join(s + '.cu' for s in KERNEL_STEMS)} in "
         f"{time.perf_counter() - t0:.2f} s")
-    for stem in KERNEL_STEMS:
-        for line in build.BUILD_LOG.get(stem, "").splitlines():
-            if "registers" in line or "Compiling entry" in line or "spill" in line:
-                log(f"  nvcc {stem}: {line.strip()}")
+    ptxas = {stem: dict(ptxas_report(build.BUILD_LOG.get(stem, ""))) for stem in KERNEL_STEMS}
+    for stem, report in ptxas.items():
+        for name, regs in report.items():
+            log(f"  nvcc {stem}: {name}: {regs}")
 
     graphs = {}
     for name, fn in (("power_law", power_law_temporal_graph),
@@ -1228,12 +1448,16 @@ def main(argv=None) -> int:
         log(f"[{name}] tile layout: {time.perf_counter() - t0:.3f} s")
 
     # -- kernel phases at the main path's layout shapes ----------------------
-    g = graphs["power_law"]
+    layouts = {}
+    for name, g in graphs.items():
+        t_lo, t_hi = int(g.t_start.min()), int(g.t_end.max())
+        layouts[name] = (g, plan_query(g, None, (t_lo, t_hi), backend="pallas_tiled"))
+    g, plan = layouts["power_law"]
     t_lo, t_hi = int(g.t_start.min()), int(g.t_end.max())
-    plan = plan_query(g, None, (t_lo, t_hi), backend="pallas_tiled")
     rows = kernel_phases(torch, np, g, plan, (t_hi - (t_hi - t_lo) // 50, t_hi),
                          args.seed, tem, segments_for)
-    rows.append(spmm_phases(torch, np, g, plan, args.seed, spmm, ops, segments_for))
+    rows.append(spmm_phases(torch, np, layouts, args.seed, spmm, ops, segments_for,
+                            parent))
 
     contexts = {name: graph_context(torch, np, name, g) for name, g in graphs.items()}
 
@@ -1255,7 +1479,7 @@ def main(argv=None) -> int:
     cfg = get_arch(LM_ARCH).cfg
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed + 2)
-    rows.append(decode_phases(torch, np, cfg, gen, k4))
+    rows.append(decode_phases(torch, np, cfg, gen, k4, parent))
     gen.manual_seed(args.seed)
     t0 = time.perf_counter()
     model = init_lm(cfg, gen, "cuda")
@@ -1268,6 +1492,11 @@ def main(argv=None) -> int:
     del model
     records += lm_records
     counts["decode_attention"] = lm_counts["decode_attention"]
+    # the redesigned kernels' instances on the main paths: registers, spills
+    rows[2]["ptxas"] = ptxas["segment_spmm"].get("segment_spmm_tiles_kernel")
+    rows[3]["ptxas"] = {f"<{t}, G={G}>": ptxas["decode_attention"].get(
+        f"decode_attention_kernel<{t}, {v}, {G}>") for t, v in (("bf16", 8), ("f32", 4))
+        for G in (cfg.n_heads // cfg.n_kv_heads,)}
     for row in rows:
         row["launches"] = counts[row["name"]]
         if row["launches"] <= 0:

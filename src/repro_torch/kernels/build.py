@@ -36,20 +36,36 @@ SIGNATURES = {
         "temporal_relax_min_tiles_launch": [_P] * 7 + [_I] * 7 + [_P],
     },
     "segment_spmm": {
-        # dst_local, messages, valid, block_tile, out, n_blocks, n_tiles,
-        # tile_v, block_e, d, n_windows, stream
-        "segment_spmm_tiles_launch": [_P] * 5 + [_I] * 6 + [_P],
+        # dst_local, messages, valid, block_tile, out, scratch, counter,
+        # n_blocks, n_tiles, tile_v, block_e, d, n_windows, stream
+        "segment_spmm_tiles_launch": [_P] * 7 + [_I] * 6 + [_P],
     },
     "decode_attention": {
-        # q, k_cache, v_cache, cache_len, part, out, B, S, KH, G, Dh, chunk,
-        # scale, dtype, vec, stream
-        "decode_attention_launch": [_P] * 6 + [_I] * 6 + [ctypes.c_float] + [_I] * 2 + [_P],
+        # q, k_cache, v_cache, cache_len, part, counter, out, B, S, KH, G, Dh,
+        # max_split, scale, dtype, vec, stream
+        "decode_attention_launch": [_P] * 7 + [_I] * 6 + [ctypes.c_float] + [_I] * 2 + [_P],
     },
 }
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 BUILD_LOG: dict = {}  # stem -> nvcc's output (ptxas register/smem report)
+_ZEROS: dict = {}     # (tag, device index, stream) -> buffer of stream_zeros
+
+
+def stream_zeros(tag: str, n: int, dtype, device):
+    """A zero-filled device buffer of at least ``n`` elements, one per
+    (``tag``, device, current stream), for kernels that leave their scratch
+    at zero when they finish: allocated (and zero-filled) again only to
+    grow, and never shared by two streams' concurrent calls."""
+    import torch
+
+    key = (tag, device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _ZEROS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=dtype, device=device)
+        _ZEROS[key] = buf
+    return buf
 
 
 def _nvcc() -> str:
@@ -107,4 +123,5 @@ def library(stem: str) -> ctypes.CDLL:
         return lib
 
 
-__all__ = ["library", "compile_source", "library_path", "BUILD_DIR", "BUILD_LOG"]
+__all__ = ["library", "compile_source", "library_path", "stream_zeros", "BUILD_DIR",
+           "BUILD_LOG"]

@@ -25,13 +25,21 @@ import torch
 
 from repro_torch.kernels import build
 
-# positions per CTA of the kernel's first pass; the second pass combines
-# the ceil(S / CHUNK) partial softmaxes of a (row, KV head).  At
-# phi4-mini's decode shape (S = 2048) that is 16 CTAs per (row, KV head),
-# 1,024 for 8 rows and 8 KV heads on the card's 132 SMs.
-CHUNK = 128
-MAX_GROUP = 8           # the kernel keeps G query heads' state in registers
+# The kernel picks the positions per split from the lengths on the device,
+# at least MIN_CHUNK and few enough for MAX_SPLIT splits per row (its
+# kMinChunk, kMaxSplit, and kTile = 32 as the rounding); the partial-softmax
+# scratch is sized for the most splits a row can have.
+MIN_CHUNK = 64
+MAX_SPLIT = 32
+MAX_GROUP = 8           # the kernel is instantiated for G = 1..8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def split_scratch(B: int, S: int, KH: int, G: int, Dh: int):
+    """Shape of the kernel's float32 partial-softmax scratch: (row, KV head,
+    split, query head, (acc[Dh], m, l, 2 floats of padding))."""
+    chunk = -(-max(MIN_CHUNK, -(-S // MAX_SPLIT)) // 32) * 32
+    return (B, KH, -(-S // chunk), G, Dh + 4)
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len):
@@ -116,13 +124,15 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     if Dh > 32 * vec:
         raise ValueError(f"{name}: d_head {Dh} exceeds the kernel's {32 * vec} "
                          f"for {q.dtype} rows of this alignment")
-    n_split = -(-S // CHUNK)
-    part = torch.empty((B, KH, n_split, G, Dh + 2), dtype=torch.float32, device=q.device)
+    shape = split_scratch(B, S, KH, G, Dh)
+    part = torch.empty(shape, dtype=torch.float32, device=q.device)
+    # per-(row, KV head) counts of finished splits, left at 0 by the kernel
+    counter = build.stream_zeros("decode_attention", B * KH, torch.int32, q.device)
     out = torch.empty_like(q)
     lib = build.library("decode_attention")
     rc = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-        part.data_ptr(), out.data_ptr(), B, S, KH, G, Dh, CHUNK,
+        part.data_ptr(), counter.data_ptr(), out.data_ptr(), B, S, KH, G, Dh, shape[2],
         ctypes.c_float(1.0 / math.sqrt(Dh)), _DTYPES[q.dtype], vec,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -134,4 +144,5 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 decode_attention.launches = 0
 
 
-__all__ = ["decode_attention", "decode_attention_plain", "CHUNK", "MAX_GROUP"]
+__all__ = ["decode_attention", "decode_attention_plain", "split_scratch", "MIN_CHUNK",
+           "MAX_SPLIT", "MAX_GROUP"]

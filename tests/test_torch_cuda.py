@@ -7,7 +7,9 @@ kernel sweep's tolerance.  The flash-decode kernel (K4) is held to its
 plain version within rtol/atol 2e-5 in float32 (the reference's kernel
 tolerance) and 2**-6 in bfloat16 (the plain version rounds q * scale and
 the probabilities to bfloat16 as the reference does, the kernel keeps
-them in float32; both round the output once).  The file
+them in float32; both round the output once), and in bfloat16 within one
+ulp (rtol 2**-7, atol 2**-12) of the plain version on float32 copies of
+its inputs, which is the kernel's own arithmetic.  The file
 imports no JAX (the machine with the card has none); the plain versions it
 compares against are held to the JAX kernels by ``test_torch_kernels.py``.
 Run on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -165,6 +167,56 @@ def test_segment_spmm_tiles_kernel_matches_plain(cuda, n_v, n_e, tile_v, block_e
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
 
 
+def _skewed_dst(kind, rng):
+    """Destinations of the K3 layouts that stress the flush: (dst, n_v,
+    tile_v, block_e)."""
+    if kind == "one_slot":       # every edge on one vertex: one tile of 24 blocks
+        return np.full(3000, 37), 300, 64, 128
+    if kind == "zipf_hub":       # power-law destinations: a hub tile over many CTAs
+        return np.minimum(rng.zipf(1.8, 40000) - 1, 4999), 5000, 128, 128
+    if kind == "main_layout":    # the main path's tile_v and block_e, a hub over many CTAs
+        return np.minimum(rng.zipf(1.8, 200000) - 1, 19999), 20000, 512, 1024
+    if kind == "empty_tiles":    # edges in tiles 0, 3 and 9 only, of 12
+        ids = np.concatenate([np.arange(0, 64), np.arange(192, 256), np.arange(576, 640)])
+        return rng.choice(ids, 2500), 768, 64, 128
+    # uniform over many small tiles: each CTA's 8 blocks span 8 tiles
+    return rng.integers(0, 4000, 6000), 4000, 64, 128
+
+
+@pytest.mark.parametrize("kind", ["one_slot", "zipf_hub", "main_layout", "empty_tiles",
+                                  "many_tiles"])
+@pytest.mark.parametrize("d", [1, 16, 130])
+@pytest.mark.parametrize("n_windows", [0, 1, 3])
+def test_segment_spmm_tiles_kernel_flush(cuda, kind, d, n_windows):
+    """Layouts whose tiles are shared by many CTAs, owned by one, or own no
+    block; NaNs in masked lanes stay out; two calls agree (the scratch and
+    counters are left at zero)."""
+    rng = np.random.default_rng(d + n_windows)
+    dst, n_v, tile_v, block_e = _skewed_dst(kind, rng)
+    lay = ops.prepare_layout(dst, n_v, tile_v=tile_v, block_e=block_e)
+    perm = lay.perm.numpy()
+    seg = np.append(dst, 0)[np.where(perm >= 0, perm, len(dst))]
+    dst_local = torch.as_tensor((seg % tile_v).astype(np.int32))
+    lead = (n_windows,) if n_windows else ()
+    ep = lay.n_edges_padded
+    msgs = torch.as_tensor(rng.random(lead + (ep, d)).astype(np.float32))
+    valid = ((lay.perm >= 0) & torch.as_tensor(rng.random(lead + (ep,)) < 0.8)).to(torch.int32)
+    msgs[valid == 0] = float("nan")
+    kw = dict(tile_v=tile_v, block_e=block_e)
+    want = spmm.segment_spmm_tiles_plain(dst_local, msgs, valid, lay.block_tile,
+                                         lay.n_tiles, **kw)
+    args = [t.to(cuda) for t in (dst_local, msgs, valid, lay.block_tile)]
+    before = spmm.segment_spmm_tiles.launches
+    got = spmm.segment_spmm_tiles(*args, lay.n_tiles, **kw)
+    again = spmm.segment_spmm_tiles(*args, lay.n_tiles, **kw)
+    torch.cuda.synchronize()
+    assert spmm.segment_spmm_tiles.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(again.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
 def test_segment_spmm_wrapper_rejects_bad_input(cuda):
     lay, lane, dst_local, _ = _layout_inputs(100, 700, 64, 128, 0)
     ep = lay.n_edges_padded
@@ -260,6 +312,54 @@ def test_decode_attention_kernel_matches_plain(cuda, B, S, H, KH, Dh, dtype):
     assert k4.decode_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), **K4_TOL[dtype])
+
+
+# K4 at float32 copies of its inputs, rounded once: the kernel's own
+# arithmetic, so within one bfloat16 ulp in bfloat16
+K4_COPY_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+               torch.bfloat16: dict(rtol=2**-7, atol=2**-12)}
+# lengths 0, 1, the smallest split size (64) +- 1, two splits +- 1, and S
+EDGE_LENGTHS = [0, 1, 63, 64, 65, 127, 128, 129, 300]
+
+
+def _check_k4(q, k, v, lens):
+    want = k4.decode_attention_plain(q.float(), k.float(), v.float(), lens).to(q.dtype)
+    before = k4.decode_attention.launches
+    got = k4.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert k4.decode_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **K4_COPY_TOL[q.dtype])
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_groups_and_edge_lengths(cuda, G, Dh, dtype):
+    B, S, KH = len(EDGE_LENGTHS), 300, 2
+    q, k, v, _ = _decode_inputs(B, S, KH * G, KH, Dh, dtype, G * Dh, cuda)
+    lens = torch.tensor(EDGE_LENGTHS, dtype=torch.int32, device=cuda)
+    _check_k4(q, k, v, lens)
+
+
+def test_decode_attention_kernel_calls_in_turn_and_on_a_side_stream(cuda):
+    """Back-to-back calls with other lengths (other split counts per row),
+    then calls on a side stream and back on the default stream: the split
+    counters are left at zero by every call."""
+    B, S, H, KH, Dh = 8, 2048, 24, 8, 128
+    q, k, v, _ = _decode_inputs(B, S, H, KH, Dh, torch.bfloat16, 11, cuda)
+    rng = np.random.default_rng(12)
+    for _ in range(3):
+        lens = torch.as_tensor(rng.integers(0, S + 1, B).astype(np.int32), device=cuda)
+        _check_k4(q, k, v, lens)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lens = torch.as_tensor(rng.integers(1, S + 1, B).astype(np.int32), device=cuda)
+        _check_k4(q, k, v, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    lens = torch.as_tensor(rng.integers(1, S + 1, B).astype(np.int32), device=cuda)
+    _check_k4(q, k, v, lens)
 
 
 def test_decode_attention_kernel_respects_lengths(cuda):

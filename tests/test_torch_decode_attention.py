@@ -21,6 +21,7 @@ SHAPES = [  # B, S, H, KH, Dh, block_s (the reference's kernel tests)
     (3, 100, 8, 4, 32, 32),       # ragged: S not a block multiple
     (1, 33, 2, 1, 8, 16),
     (2, 128, 8, 8, 16, 64),       # MHA (G=1)
+    (2, 96, 16, 2, 16, 32),       # G=8, the kernel's largest group
 ]
 
 
@@ -120,6 +121,18 @@ def test_cpu_call_runs_the_plain_version_uncounted():
     assert k4.decode_attention.launches == before
     want = k4.decode_attention_plain(*(torch.as_tensor(a) for a in (q, k, v, lens)))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S,splits", [
+    (1, 1), (64, 1), (65, 2), (300, 5),     # 64 positions per split at least
+    (2048, 32), (2049, 22), (32768, 32),    # at most 32 splits per row
+])
+def test_split_scratch_sizes(S, splits):
+    """The partial-softmax scratch holds the most splits a row of S
+    positions can have: splits of at least 64 positions, a multiple of 32,
+    and at most 32 of them."""
+    assert k4.split_scratch(8, S, 8, 3, 128) == (8, 8, splits, 3, 132)
+    assert splits <= k4.MAX_SPLIT and (splits - 1) * k4.MIN_CHUNK < S
 
 
 @pytest.mark.parametrize("bad", ["kv_heads", "v_shape", "len_dtype", "len_shape", "dtype"])

@@ -124,6 +124,65 @@ def test_masked_lanes_contribute_nothing():
     np.testing.assert_allclose(as_np(got), want, **TOL)
 
 
+def _skewed_layout_inputs(dst, n_v, tile_v, block_e, seed):
+    rng = np.random.default_rng(seed)
+    lay = jops.prepare_layout(dst, n_v, tile_v=tile_v, block_e=block_e)
+    lane = lay.perm >= 0
+    seg = np.append(dst, 0)[np.where(lane, lay.perm, len(dst))]
+    msgs = rng.random((lay.n_edges_padded, 2)).astype(np.float32)
+    valid = (lane & (rng.random(lay.n_edges_padded) < 0.8)).astype(np.int32)
+    return lay, (seg % tile_v).astype(np.int32), msgs, valid
+
+
+@pytest.mark.parametrize("kind", ["one_slot", "empty_tiles"])
+def test_segment_spmm_tiles_plain_matches_pallas_on_skewed_layouts(kind):
+    """Every edge on one slot (one tile of many blocks, the kernel's shared
+    flush), and edges in 3 of 12 tiles (tiles that own no block read 0)."""
+    rng = np.random.default_rng(5)
+    if kind == "one_slot":
+        dst, n_v = np.full(3000, 37), 300
+    else:
+        ids = np.concatenate([np.arange(0, 64), np.arange(192, 256), np.arange(576, 640)])
+        dst, n_v = rng.choice(ids, 2500), 768
+    lay, dst_local, msgs, valid = _skewed_layout_inputs(dst, n_v, 64, 128, 6)
+    want = _jax_tiles(lay, dst_local, msgs, valid)
+    got = tspmm.segment_spmm_tiles(_t(dst_local), _t(msgs), _t(valid),
+                                   _t(lay.block_tile), lay.n_tiles, tile_v=64, block_e=128)
+    np.testing.assert_allclose(as_np(got), want, **TOL)
+    owned = np.zeros(lay.n_tiles, bool)
+    owned[lay.block_tile] = True
+    assert (as_np(got)[~owned] == 0).all()
+    if kind == "one_slot":
+        assert lay.n_blocks == 24 and (lay.block_tile == 0).all()
+        np.testing.assert_allclose(as_np(got)[0, 37], (msgs * valid[:, None]).sum(0),
+                                   rtol=1e-6)
+    else:
+        assert owned.sum() == 3
+
+
+def test_wrapper_rejects_unordered_block_tile():
+    """The kernel needs a tile's blocks consecutive (block_tile
+    nondecreasing, as the layout builds it); the wrapper checks it on the
+    CPU."""
+    lay, dst_local, msgs, valid = _layout_inputs(700, 6000, 256, 512, 1, 0, 3)
+    bt = lay.block_tile.copy()
+    assert (np.diff(bt) >= 0).all()
+    bt[[0, -1]] = bt[[-1, 0]]
+    with pytest.raises(ValueError, match="nondecreasing"):
+        tspmm.segment_spmm_tiles(_t(dst_local), _t(msgs), _t(valid), _t(bt), lay.n_tiles,
+                                 tile_v=256, block_e=512)
+
+
+@pytest.mark.parametrize("n_windows,n_tiles,tile_v,d,want", [
+    (1, 2227, 512, 1, (1140224, 2227)),     # power-law main path: one chunk
+    (8, 2227, 512, 1, (9121792, 17816)),
+    (1, 24, 128, 130, (399360, 72)),        # 48 columns of 128 slots: 3 chunks
+    (3, 5, 64, 16, (15360, 15)),
+])
+def test_flush_scratch_sizes(n_windows, n_tiles, tile_v, d, want):
+    assert tspmm.flush_scratch_sizes(n_windows, n_tiles, tile_v, d) == want
+
+
 def test_wrapper_checks_inputs():
     lay, dst_local, msgs, valid = _layout_inputs(100, 700, 64, 128, 2, 0, 4)
     d, m, v, bt = _t(dst_local), _t(msgs), _t(valid), _t(lay.block_tile)
