@@ -6,7 +6,8 @@
 1. Requires a CUDA card; prints its name and power limit.
 2. Builds the kernels of ``src/repro_torch/kernels/csrc`` with nvcc.
 3. Kernel phases, at the main path's tile-layout shapes: each kernel
-   against its plain PyTorch version on the card (K1/K2 bit-identical, the
+   against its plain PyTorch version on the card (K1/K2 bit-identical, K1
+   also at W = 8 and 32 windows per launch, the
    float-sum K3 within rtol/atol 2e-4), timed beside the plain version, one
    PyTorch library call and the memory-bytes bound; K3 at the power-law and
    the transit layouts.
@@ -18,8 +19,16 @@
    and to a numpy oracle; PageRank (100 iterations) in every plan cell and a
    W=8 sweep against a float64 numpy oracle; BFS, connected components,
    k-core, overlaps reachability and betweenness across both backends (and
-   against numpy/scipy oracles for BFS, CC and k-core); profiles of one EA
-   and one PageRank query.  The kernels' launch counts are read around it.
+   against numpy/scipy oracles for BFS, CC and k-core); latest departure,
+   fastest and shortest duration in every plan cell (against numpy
+   oracles) and the one-pass baseline (sound against the EA oracle);
+   multi-tenant serving (``serve_batch``: four tenants, 88 rows over four
+   sliding windows, a cold start and six advances on a tiled scan plan,
+   every row against cold sweeps, K1 and K3 launched inside each advance)
+   and an index-ring (transit) and a hybrid-ring (power-law) stream of
+   eight advances, each ring against a cold build; profiles of one EA and
+   one PageRank query and of one advance of each stream.  The kernels'
+   launch counts are read around all of it.
 5. K4 (flash-decode attention) at phi4-mini-3.8b's decode shape (8 rows,
    2048 positions, ragged lengths, GQA group 3, d_head 128) in bfloat16 and
    float32 against its plain version, timed beside it, beside
@@ -360,31 +369,39 @@ def kernel_phases(torch, np, g, plan, window, seed, tem, segments_for):
     k1["bound_ms"], k1["bound_by"] = bound_ms(8 * ep + 4 * nb + 4 * nt * tv, 2 * ep)
     log(f"K1 segment_min_tiles [{ep}]: bit-identical; {k1}")
 
-    # K1, W=8 windows in one launch
-    W = 8
-    cand_w = rand_cand((W, ep), 0.1)
-    got = tem.segment_min_tiles(dst_local, cand_w, block_tile, nt, tile_v=tv, block_e=be)
-    want = tem.segment_min_tiles_plain(dst_local, cand_w, block_tile, nt, tile_v=tv, block_e=be)
-    err = max(err, max_abs_err(torch, got, want))
-    glob_w = (glob[None, :] + torch.arange(W, device=dev)[:, None] * nt * tv).reshape(-1)
-    lib_w = torch.full((W * nt * tv,), INF, dtype=torch.int32, device=dev)
-    flat_w = cand_w.reshape(-1)
-    k1w = dict(
-        ms=cuda_ms(torch, lambda: tem.segment_min_tiles(
-            dst_local, cand_w, block_tile, nt, tile_v=tv, block_e=be)),
-        plain_ms=cuda_ms(torch, lambda: tem.segment_min_tiles_plain(
-            dst_local, cand_w, block_tile, nt, tile_v=tv, block_e=be)),
-        library_ms=cuda_ms(torch, lambda: lib_w.scatter_reduce_(
-            0, glob_w, flat_w, "amin")),
-    )
-    k1w["bound_ms"], k1w["bound_by"] = bound_ms(
-        4 * ep + 4 * W * ep + 4 * nb + 4 * W * nt * tv, 2 * W * ep)
-    log(f"K1 segment_min_tiles [W={W}, {ep}]: bit-identical; {k1w}")
+    # K1, W windows in one launch: W=8 (the sweeps) and W=32 (fastest's
+    # departure ladder, the serving path's EA group); the slow plain and
+    # library calls at W=32 are timed over fewer calls
+    windowed = {}
+    for W, iters in ((8, TIMING_ITERS), (32, 5)):
+        cand_w = rand_cand((W, ep), 0.1)
+        got = tem.segment_min_tiles(dst_local, cand_w, block_tile, nt, tile_v=tv,
+                                    block_e=be)
+        want = tem.segment_min_tiles_plain(dst_local, cand_w, block_tile, nt, tile_v=tv,
+                                           block_e=be)
+        err = max(err, max_abs_err(torch, got, want))
+        del got, want
+        glob_w = (glob[None, :] + torch.arange(W, device=dev)[:, None] * nt * tv).reshape(-1)
+        lib_w = torch.full((W * nt * tv,), INF, dtype=torch.int32, device=dev)
+        flat_w = cand_w.reshape(-1)
+        k1w = dict(
+            ms=cuda_ms(torch, lambda: tem.segment_min_tiles(
+                dst_local, cand_w, block_tile, nt, tile_v=tv, block_e=be)),
+            plain_ms=cuda_ms(torch, lambda: tem.segment_min_tiles_plain(
+                dst_local, cand_w, block_tile, nt, tile_v=tv, block_e=be), iters=iters),
+            library_ms=cuda_ms(torch, lambda: lib_w.scatter_reduce_(
+                0, glob_w, flat_w, "amin"), iters=iters),
+        )
+        k1w["bound_ms"], k1w["bound_by"] = bound_ms(
+            4 * ep + 4 * W * ep + 4 * nb + 4 * W * nt * tv, 2 * W * ep)
+        log(f"K1 segment_min_tiles [W={W}, {ep}]: bit-identical; {k1w}")
+        windowed[f"windowed_w{W}"] = k1w
+        del cand_w, glob_w, lib_w, flat_w
     rows.append(dict(
         name="segment_min_tiles", route="cuda",
         source="src/repro_torch/kernels/csrc/temporal_edgemap.cu",
         replaces="src/repro/kernels/temporal_edgemap.py:156",
-        max_abs_err=err, **k1, windowed_w8=k1w))
+        max_abs_err=err, **k1, **windowed))
 
     # K2, strict False and True; times at strict=False
     perm = plan.layout_perm
@@ -783,6 +800,397 @@ def analytics_path(torch, np, name, g, tger, fields, window, sources):
             f"scan/{b} {ms[b]:.3f} ms (K1 launches {k1[b]})" for b in plans) + f"; {note}")
         records.append(dict(graph=name, algorithm=alg, window="narrow", ms=ms,
                             k1_launches=k1))
+    return records
+
+
+INT_NEG_INF = -(2**31)
+SD_BUCKETS = 64        # shortest_duration's staircase (the reference's default)
+ONEPASS_CHUNK = 4096   # earliest_arrival_onepass's defaults
+ONEPASS_ITERS = 2
+SERVE_WINDOWS = 4      # sliding windows per serving tenant
+SERVE_ADVANCES = 6
+SERVE_EA_SOURCES = 8
+SERVE_BFS_SOURCES = 4
+SERVE_PAGERANK_ITERS = 20
+RING_ADVANCES = 8
+RING_SOURCES = 2
+CELLS = [(a, b) for a in ("scan", "index", "hybrid")
+         for b in ("xla_segment", "pallas_tiled")]
+
+
+def ld_oracle(np, src, dst, ts, te, n_v, target, window):
+    """Vectorised numpy latest departure (succeeds): each round relaxes the
+    in-edges of the vertices the last round improved, max into the source."""
+    ta, tb = window
+    ok = (ts >= ta) & (te <= tb)
+    s, d, s_ts, s_te = src[ok], dst[ok], ts[ok], te[ok]
+    ld = np.full(n_v, INT_NEG_INF, np.int64)
+    ld[target] = tb
+    frontier = np.zeros(n_v, bool)
+    frontier[target] = True
+    while frontier.any():
+        e = frontier[d] & (s_te <= ld[d])
+        new = ld.copy()
+        np.maximum.at(new, s[e], s_ts[e])
+        frontier = new > ld
+        ld = new
+    return ld
+
+
+def sd_oracle(np, src, dst, ts, te, n_v, source, window, n_buckets):
+    """Numpy shortest duration over the same bucketed Pareto staircase:
+    dur[v, p] = least summed duration of a path arriving by bound[p], the
+    bounds a float32 grid over the window (``x * float32(1 / P)``, as the
+    compiled reference rounds it); float32 sums, so equal bit for bit."""
+    ta, tb = window
+    P = n_buckets
+    steps = np.arange(1, P + 1, dtype=np.int32).astype(np.float32)
+    bounds = ta + (np.float32(tb - ta) * steps * (np.float32(1) / np.float32(P))
+                   ).astype(np.int32)
+    ok = (ts >= ta) & (te <= tb)
+    s, d, s_ts, s_te = src[ok], dst[ok], ts[ok], te[ok]
+    cost = (s_te - s_ts).astype(np.float32)
+    q = np.minimum(np.searchsorted(bounds, s_te, side="left"), P - 1)
+    p_src = np.searchsorted(bounds, s_ts, side="right") - 1
+    from_source = s == source
+    usable_src = (p_src >= 0) | from_source
+    p_c = np.maximum(p_src, 0)
+    flat = d.astype(np.int64) * P + q
+    dur = np.full((n_v, P), np.inf, np.float32)
+    dur[source] = 0
+    frontier = np.zeros(n_v, bool)
+    frontier[source] = True
+    while frontier.any():
+        use = frontier[s] & usable_src
+        cand = np.where(from_source, np.float32(0), dur[s, p_c]) + cost
+        upd = np.full(n_v * P, np.inf, np.float32)
+        np.minimum.at(upd, flat[use], cand[use])
+        new = np.minimum.accumulate(np.minimum(dur, upd.reshape(n_v, P)), axis=1)
+        frontier = (new < dur).any(axis=1)
+        dur = new
+    return dur[:, P - 1]
+
+
+def departures(np, g_fields, offsets, v, window, n_departures=32):
+    """The distinct start times of v's first ``n_departures`` out-edges
+    starting inside the window (its T-CSR slice is start-sorted)."""
+    ts = g_fields[2]
+    sl = ts[offsets[v]:offsets[v + 1]]
+    sl = sl[(sl >= window[0]) & (sl <= window[1])][:n_departures]
+    return np.unique(sl)
+
+
+def fastest_oracle(np, fields, n_v, source, window, departs):
+    """min over departures d of ea_oracle([d, tb]) - d; 0 at the source."""
+    best = np.full(n_v, INF, np.int64)
+    for d in departs:
+        arr = ea_oracle(np, *fields, n_v, source, (int(d), window[1]))
+        best = np.minimum(best, np.where(arr == INF, INF, arr - d))
+    best[source] = 0
+    return best
+
+
+def paths_path(torch, np, name, g, tger, fields, windows, sources):
+    """Latest departure, fastest and shortest duration (the rest of
+    ``paths.py``) in the six plan cells on the narrow window, bit-identical
+    across cells and equal to numpy oracles; on power_law latest departure
+    and fastest on the wide window too (scan cells).  Then the one-pass
+    baseline, held sound against the EA oracle."""
+    from repro_torch.core import plan_query
+    from repro_torch.core.algorithms import fastest, latest_departure, shortest_duration
+    from repro_torch.core.onepass import earliest_arrival_onepass
+    from repro_torch.device import to_numpy
+    from repro_torch.kernels import launch_counts
+
+    sync = torch.cuda.synchronize
+    src_np, dst_np, ts_np, te_np = fields
+    n_v = g.n_vertices
+    offsets = to_numpy(g.out_offsets)
+    in_deg = np.bincount(dst_np, minlength=n_v)
+    target = int(np.argmax(in_deg))
+    s = sources[0]
+    runs = {
+        "latest_departure": lambda win, plan: latest_departure(g, target, win, tger,
+                                                               plan=plan),
+        "fastest": lambda win, plan: fastest(g, s, win, tger, plan=plan),
+        "shortest_duration": lambda win, plan: shortest_duration(
+            g, s, win, tger, plan=plan, n_buckets=SD_BUCKETS),
+    }
+    cells = {"narrow": CELLS}
+    if name == "power_law":
+        cells["wide"] = [("scan", "xla_segment"), ("scan", "pallas_tiled")]
+    records = []
+    for wname, cell_list in cells.items():
+        win = windows[wname]
+        for alg, run in runs.items():
+            if wname == "wide" and alg == "shortest_duration":
+                continue
+            out, ms, k1 = {}, {}, {}
+            for access, backend in cell_list:
+                plan = plan_query(g, tger, win, access=access, backend=backend)
+                before = launch_counts()["segment_min_tiles"]
+                sync()
+                t0 = time.perf_counter()
+                res = run(win, plan)
+                sync()
+                ms[f"{access}/{backend}"] = (time.perf_counter() - t0) * 1e3
+                k1[f"{access}/{backend}"] = launch_counts()["segment_min_tiles"] - before
+                out[f"{access}/{backend}"] = res
+            ref = next(iter(out.values()))
+            for cell, res in out.items():
+                if not torch.equal(res, ref):
+                    raise AssertionError(f"[{name}] {alg} {wname}: {cell} differs")
+            note = "bit-identical across cells"
+            host = to_numpy(ref)
+            if wname == "narrow" and alg == "latest_departure":
+                want = ld_oracle(np, *fields, n_v, target, win)
+                if not (host.astype(np.int64) == want).all():
+                    raise AssertionError(f"[{name}] latest_departure differs from the oracle")
+                note += f", oracle agrees ({int((host > INT_NEG_INF).sum())} can reach " \
+                        f"{target})"
+            elif wname == "narrow" and alg == "shortest_duration":
+                want = sd_oracle(np, *fields, n_v, s, win, SD_BUCKETS)
+                if not (host.view(np.int32) == want.view(np.int32)).all():
+                    raise AssertionError(f"[{name}] shortest_duration differs from the "
+                                         f"oracle")
+                note += f", oracle agrees bit for bit ({int(np.isfinite(host).sum())} " \
+                        f"reached)"
+            log(f"[{name}] {alg} {wname} {win}: " + "; ".join(
+                f"{c} {t:.3f} ms (K1 {k1[c]})" for c, t in ms.items()) + f"; {note}")
+            records.append(dict(graph=name, algorithm=alg, window=wname, ms=ms,
+                                k1_launches=k1))
+    # fastest against the oracle from a source with a few distinct departures
+    win = windows["narrow"]
+    plan = plan_query(g, tger, win, access="scan", backend="pallas_tiled")
+    active = np.unique(src_np[(ts_np >= win[0]) & (ts_np <= win[1])])
+    fsrc = next(int(v) for v in active[np.argsort(-np.diff(offsets)[active])]
+                if 2 <= len(departures(np, fields, offsets, v, win)) <= 6)
+    deps = departures(np, fields, offsets, fsrc, win)
+    got = to_numpy(fastest(g, fsrc, win, tger, plan=plan)).astype(np.int64)
+    if not (got == fastest_oracle(np, fields, n_v, fsrc, win, deps)).all():
+        raise AssertionError(f"[{name}] fastest differs from its oracle")
+    log(f"[{name}] fastest narrow src={fsrc} ({len(deps)} departures): equal to the "
+        f"minimum over departures of the EA oracle ({int((got < INF).sum())} reached)")
+    # the one-pass baseline: sound (never earlier than the fixpoint)
+    sync()
+    t0 = time.perf_counter()
+    one = earliest_arrival_onepass(g, tger, s, win, chunk_size=ONEPASS_CHUNK,
+                                   intra_chunk_iters=ONEPASS_ITERS)
+    sync()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    one = to_numpy(one).astype(np.int64)
+    want = ea_oracle(np, *fields, n_v, s, win)
+    if (one < want).any():
+        raise AssertionError(f"[{name}] onepass reports an arrival earlier than EA")
+    later = int((one > want).sum())
+    log(f"[{name}] earliest_arrival_onepass narrow src={s}: {one_ms:.3f} ms "
+        f"({-(-g.n_edges // ONEPASS_CHUNK)} chunks x {ONEPASS_ITERS}); sound, later than "
+        f"the fixpoint at {later} of {int((want < INF).sum())} reached vertices")
+    records.append(dict(graph=name, algorithm="onepass", window="narrow", ms=one_ms,
+                        later_vertices=later))
+    return records
+
+
+def _batch_rows_vs_cold(torch, np, name, g, tger, batch, results, plan, failures, step):
+    """Each group's rows against cold sweeps of that group under ``plan``:
+    integer groups bit for bit, PageRank within the PageRank phase's
+    tolerance."""
+    from repro_torch.device import to_numpy
+    from repro_torch.serve import sweep
+
+    for gi, ((alg, params), rows) in enumerate(batch.groups().items()):
+        wins = sorted({r.window for r in rows})
+        col = {w: i for i, w in enumerate(wins)}
+        cold = {}
+        for src in {r.source for r in rows}:
+            cold[src] = sweep(g, 0 if src is None else src, np.asarray(wins, np.int32),
+                              tger, algorithm=alg, plan=plan, **dict(params))
+        res = results[gi]
+        for qi, r in enumerate(rows):
+            want = cold[r.source]
+            if alg == "pagerank":
+                check_pagerank(np, f"[{name}] serving advance {step} pagerank row {qi}",
+                               to_numpy(res[qi]),
+                               to_numpy(want[col[r.window]]).astype(np.float64), failures)
+                continue
+            parts = zip(res, want) if isinstance(res, tuple) else ((res, want),)
+            for a, b in parts:
+                if not torch.equal(a[qi], b[col[r.window]]):
+                    raise AssertionError(f"[{name}] serving advance {step}: {alg} row {qi} "
+                                         f"differs from the cold sweep")
+
+
+def serving_path(torch, np, name, g, tger, fields, failures):
+    """Multi-tenant serving (``serve_batch``) on a scan/pallas_tiled plan:
+    four tenants over SERVE_WINDOWS sliding windows (EA from 8 sources, the
+    same EA rows again, BFS from 4 sources, CC and PageRank), a cold start
+    and SERVE_ADVANCES advances, each checked against cold sweeps, with its
+    time, rows solved and K1/K3 launches; then one advance profiled."""
+    from repro_torch.engine import QueryBatch, QuerySpec
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve import dispatch_log, serve_batch, sliding_windows
+
+    sync = torch.cuda.synchronize
+    src_np, _, ts_np, te_np = fields
+    t_hi = int(te_np.max())
+    width = (t_hi - int(ts_np.min())) // 50
+    stride = width // 4
+    active = np.unique(src_np[ts_np >= t_hi - width])
+    ea_src = [int(active[int(len(active) * q)]) for q in
+              np.linspace(0, 1, SERVE_EA_SOURCES, endpoint=False)]
+    bfs_src = ea_src[:SERVE_BFS_SOURCES]
+
+    def batch_at(base):
+        wins = [tuple(int(x) for x in w) for w in
+                sliding_windows(base, width, stride, SERVE_WINDOWS)]
+        specs = []
+        for _tenant in range(2):   # two tenants asking the same EA rows
+            specs += [QuerySpec.make("earliest_arrival", w, sources=ea_src) for w in wins]
+        specs += [QuerySpec.make("bfs", w, sources=bfs_src) for w in wins]
+        specs += [QuerySpec.make("cc", w) for w in wins]
+        specs += [QuerySpec.make("pagerank", w, n_iters=SERVE_PAGERANK_ITERS) for w in wins]
+        return QueryBatch.make(specs)
+
+    # rows that a one-stride slide adds: one new window per spec family
+    new_rows = 2 * SERVE_EA_SOURCES + SERVE_BFS_SOURCES + 2
+    new_unique = SERVE_EA_SOURCES + SERVE_BFS_SOURCES + 2
+    base = t_hi - (SERVE_ADVANCES + 1) * stride
+    state, records = None, []
+    for step in range(SERVE_ADVANCES + 1):
+        batch = batch_at(base + step * stride)
+        before = launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        with dispatch_log() as tags:
+            results, state = serve_batch(g, batch, tger, state=state, access="scan",
+                                         backend="pallas_tiled")
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        k1 = after["segment_min_tiles"] - before["segment_min_tiles"]
+        k3 = after["segment_spmm_tiles"] - before["segment_spmm_tiles"]
+        if step == 0:   # the second tenant's EA rows dedup
+            want = ("cold", batch.n_rows, batch.n_rows - SERVE_EA_SOURCES * SERVE_WINDOWS)
+        else:
+            want = ("reuse", new_rows, new_unique)
+            if tags != ["fused:scan"]:
+                raise AssertionError(f"[{name}] serving advance {step} logged {tags}")
+        got = (state.last_advance, state.n_solved, state.n_solved_unique)
+        if got != want:
+            raise AssertionError(f"[{name}] serving advance {step}: (last_advance, "
+                                 f"n_solved, n_solved_unique) {got}, expected {want}")
+        if k1 <= 0 or k3 <= 0:
+            raise AssertionError(f"[{name}] serving advance {step}: K1 {k1}, K3 {k3} "
+                                 f"launches")
+        _batch_rows_vs_cold(torch, np, name, g, tger, batch, results, state.plan,
+                            failures, step)
+        log(f"[{name}] serving {state.last_advance} {step}: {ms:.3f} ms, "
+            f"{state.n_solved} rows solved ({state.n_solved_unique} unique) of "
+            f"{batch.n_rows}, K1 {k1} / K3 {k3} launches, EA rounds {state.last_rounds}; "
+            f"rows equal to cold sweeps")
+        records.append(dict(graph=name, algorithm="serve_batch", step=step,
+                            advance=state.last_advance, ms=ms, n_rows=batch.n_rows,
+                            n_solved=state.n_solved, n_unique=state.n_solved_unique,
+                            k1_launches=k1, k3_launches=k3))
+    carry = [state]
+
+    def one_more():
+        carry[0] = serve_batch(g, batch_at(base + (SERVE_ADVANCES + 1) * stride), tger,
+                               state=carry[0], access="scan", backend="pallas_tiled")[1]
+
+    prof = profile_query(torch, f"[{name}] serving advance (scan/pallas_tiled, "
+                                f"{new_unique} unique new rows)", one_more, warm=False)
+    steady_ms = float(np.mean([r["ms"] for r in records[1:]]))
+    records.append(idle_record(name, "serve_batch_profile", prof, steady_ms))
+    return records
+
+
+def idle_record(name, algorithm, prof, steady_ms):
+    """The profiled advance's device time against the mean UNPROFILED
+    advance of the same phase (the profiler lengthens the advance it
+    records, so its own wall clock would overstate the idle share)."""
+    idle = 1 - prof["busy_us"] / (steady_ms * 1e3)
+    log(f"[{name}] {algorithm}: device busy {prof['busy_us']:.1f} us in the mean unprofiled "
+        f"advance's {steady_ms * 1e3:.1f} us: idle share {idle:.3f}")
+    return dict(graph=name, algorithm=algorithm, wall_us=prof["wall_us"],
+                busy_us=prof["busy_us"], ms_per_advance_mean=steady_ms, idle_share=idle)
+
+
+def ring_stream(torch, np, name, g, tger, fields, access):
+    """An index or hybrid ring stream: EA from RING_SOURCES sources over
+    SERVE_WINDOWS narrow windows, RING_ADVANCES one-stride advances.  After
+    each, the advanced ring equals a cold ring build at its (lo, hi) field
+    for field, the rows equal cold sweeps, and the log reads
+    ``fused:<access>``."""
+    from repro_torch.core.edgemap import hybrid_ring_view, index_ring_view
+    from repro_torch.engine import QueryBatch, QuerySpec
+    from repro_torch.serve import dispatch_log, serve_batch, sliding_windows, sweep
+
+    sync = torch.cuda.synchronize
+    src_np, _, ts_np, te_np = fields
+    t_hi = int(te_np.max())
+    width = (t_hi - int(ts_np.min())) // 50
+    stride = width // 4
+    active = np.unique(src_np[ts_np >= t_hi - width])
+    srcs = [int(active[len(active) // 3]), int(active[2 * len(active) // 3])]
+    build = index_ring_view if access == "index" else hybrid_ring_view
+
+    def batch_at(base):
+        return QueryBatch.make([QuerySpec.make("earliest_arrival", tuple(int(x) for x in w),
+                                               sources=srcs)
+                                for w in sliding_windows(base, width, stride,
+                                                         SERVE_WINDOWS)])
+
+    base = t_hi - (RING_ADVANCES + 1) * stride
+    _, state = serve_batch(g, batch_at(base), tger, access=access)
+    records, fused = [], 0
+    for step in range(1, RING_ADVANCES + 1):
+        batch = batch_at(base + step * stride)
+        lo_prev, budget = state.lo, state.plan.per_vertex_budget
+        sync()
+        t0 = time.perf_counter()
+        with dispatch_log() as tags:
+            results, state = serve_batch(g, batch, tger, state=state, access=access)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        scattered = state.lo - lo_prev
+        if state.last_advance != "delta" or tags != [f"fused:{access}"]:
+            # every advance of the stream must take the ring delta; a cold
+            # one names the per-vertex budget its plan held (hybrid's guard)
+            raise AssertionError(
+                f"[{name}] {access} ring advance {step}: {state.last_advance} {tags}, "
+                f"not a ring delta (per-vertex budget {budget} -> "
+                f"{state.plan.per_vertex_budget})")
+        fused += 1
+        cold = build(g, tger, state.lo, state.hi, capacity=state.capacity)
+        if not all(torch.equal(a, b) for a, b in zip(state.edges, cold)):
+            raise AssertionError(f"[{name}] {access} ring advance {step}: the ring "
+                                 f"differs from a cold build")
+        wins = np.asarray(sorted({r.window for r in batch.rows()}), np.int32)
+        col = {tuple(int(x) for x in w): i for i, w in enumerate(wins)}
+        colds = {s: sweep(g, s, wins, tger, plan=state.plan) for s in srcs}
+        for qi, r in enumerate(batch.groups()[("earliest_arrival", ())]):
+            if not torch.equal(results[0][qi], colds[r.source][col[r.window]]):
+                raise AssertionError(f"[{name}] {access} ring advance {step}: row {qi} "
+                                     f"differs from the cold sweep")
+        log(f"[{name}] {access} ring advance {step}: {state.last_advance} {tags}, "
+            f"{scattered} positions scattered into {state.capacity} slots "
+            f"(live [{state.lo}, {state.hi})), {ms:.3f} ms, {state.n_solved} rows "
+            f"solved; ring equal to a cold build, rows equal to cold sweeps")
+        records.append(dict(graph=name, algorithm=f"{access}_ring", step=step,
+                            advance=state.last_advance, ms=ms, scattered=scattered,
+                            capacity=state.capacity, n_solved=state.n_solved))
+    log(f"[{name}] {access} ring: {fused} of {RING_ADVANCES} advances fused")
+    carry = [state]
+
+    def one_more():
+        carry[0] = serve_batch(g, batch_at(base + (RING_ADVANCES + 1) * stride), tger,
+                               state=carry[0], access=access)[1]
+
+    prof = profile_query(torch, f"[{name}] {access} ring advance", one_more, warm=False)
+    records.append(idle_record(name, f"{access}_ring_profile", prof,
+                               float(np.mean([r["ms"] for r in records]))))
+    records[-1]["fused"] = fused
     return records
 
 
@@ -1470,6 +1878,13 @@ def main(argv=None) -> int:
         records += pagerank_path(torch, np, name, g, tger, fields, windows, failures)
         records += analytics_path(torch, np, name, g, tger, fields, windows["narrow"],
                                   sources)
+        records += paths_path(torch, np, name, g, tger, fields, windows, sources)
+    # multi-tenant serving and the ring streams (counted too)
+    records += serving_path(torch, np, "power_law", graphs["power_law"],
+                            contexts["power_law"][0], contexts["power_law"][1], failures)
+    for name, access in (("transit", "index"), ("power_law", "hybrid")):
+        tger, fields, _, _ = contexts[name]
+        records += ring_stream(torch, np, name, graphs[name], tger, fields, access)
     counts = launch_counts()
     log(f"graph paths launches: {counts}")
     if failures:

@@ -1,10 +1,14 @@
-"""Temporal algorithms ported so far: earliest arrival, BFS, connected
-components, k-core, PageRank, betweenness and overlaps reachability."""
+"""Temporal algorithms: earliest arrival, latest departure, fastest,
+shortest duration, BFS, connected components, k-core, PageRank,
+betweenness and overlaps reachability."""
 from repro_torch.core.algorithms.paths import (  # noqa: F401
     earliest_arrival,
     earliest_arrival_batched,
     earliest_arrival_multi,
     earliest_arrival_over_view,
+    fastest,
+    latest_departure,
+    shortest_duration,
 )
 from repro_torch.core.algorithms.bfs import (  # noqa: F401
     temporal_bfs,

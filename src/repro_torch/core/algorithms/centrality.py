@@ -21,27 +21,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.algorithms.paths import earliest_arrival_over_view
+from repro_torch.core.algorithms.paths import bucket_bounds, earliest_arrival_over_view
 from repro_torch.core.edgemap import INT_INF, EdgeView, ensure_plan, union_window, view_for_plan
 from repro_torch.core.predicates import OrderingPredicateType, edge_follows
 from repro_torch.core.temporal_graph import TemporalGraph
 from repro_torch.core.tger import TGERIndex
 from repro_torch.engine.fixpoint import FixpointRunner
 from repro_torch.engine.plan import AccessPlan
-
-
-def bucket_bounds(windows: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """i32[Q, P] upper bounds of the P arrival buckets of each window: a
-    uniform grid ``ta + int32(float32(tb - ta) * (p + 1) / P)`` in float32,
-    rounded as the JAX package's compiled program rounds it (a bound one
-    off re-buckets vertices).  XLA compiles the division by the constant P
-    into a multiplication by P's float32 reciprocal, which differs from a
-    true division unless P is a power of two; the port multiplies too."""
-    ta, tb = windows[:, 0:1], windows[:, 1:2]
-    steps = torch.arange(1, n_buckets + 1, dtype=torch.int32, device=windows.device)
-    span = (tb - ta).to(torch.float32)
-    recip = float(np.float32(1) / np.float32(n_buckets))   # exact in float32
-    return ta + (span * steps * recip).to(torch.int32)
 
 
 def _brandes_rows(edges, valid, windows, sources, t, n_buckets: int,

@@ -11,17 +11,20 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.temporal_graph import TemporalGraph
 from repro_torch.core.tger import (
     TGERIndex,
     gather_window_edges,
+    heavy_window_positions_host,
     vertex_range,
+    window_positions_host,
     window_range,
 )
 from repro_torch.device import resolve_device, to_numpy
-from repro_torch.engine.plan import AccessPlan, make_plan
+from repro_torch.engine.plan import AccessPlan, make_plan, rung
 from repro_torch.kernels.temporal_edgemap import INT_INF
 
 
@@ -94,6 +97,180 @@ def view_for_plan(g: TemporalGraph, tger: Optional[TGERIndex], window,
     return scan_view(g)
 
 
+# ---------------------------------------------------------------------------
+# Ring-buffer views
+#
+# The incremental server needs a view that is POSITIONALLY STABLE across
+# advances: the slot an edge occupies does not depend on the current
+# window, so a forward slide touches only the entering positions.  The
+# identity is ``slot(p) = p mod C`` over the time-first permutation (global
+# for index plans; heavy-only for hybrid plans, whose light partition is a
+# window-independent prefix).  An advance from ``lo`` to ``lo'`` writes
+# exactly the entering positions [lo + C, lo' + C) into the slots they own,
+# in place, and recomputes the O(C) validity mask; every surviving slot is
+# untouched, so the advanced view equals a cold ring build at the new
+# window field for field.
+# ---------------------------------------------------------------------------
+
+def ring_positions(lo: int, capacity: int, device=None) -> torch.Tensor:
+    """i64[C] time-first position resident in each ring slot: the unique p
+    in [lo, lo + C) with p = slot (mod C).  ``torch.remainder`` floors as
+    the reference's ``jnp.mod`` does (``s - lo`` is negative)."""
+    s = torch.arange(capacity, dtype=torch.int64, device=device)
+    return int(lo) + torch.remainder(s - int(lo), capacity)
+
+
+def _gather_fields(g: TemporalGraph, eids: torch.Tensor):
+    eids = eids.long()
+    return (g.src[eids], g.dst[eids], g.t_start[eids], g.t_end[eids],
+            g.weight[eids])
+
+
+def _fields(g: TemporalGraph):
+    return (g.src, g.dst, g.t_start, g.t_end, g.weight)
+
+
+def index_ring_view(g: TemporalGraph, idx: TGERIndex, lo: int, hi: int, *,
+                    capacity: int) -> EdgeView:
+    """Cold build of the index-plan ring view: slot p % C holds time-first
+    position p for p in [lo, lo + C), masked to the valid [lo, hi).  The
+    same edge SET as ``index_view(g, idx, window, budget=C)``; only slot
+    order differs, which no masked combine observes."""
+    pos = ring_positions(lo, capacity, g.device)
+    eids = idx.perm_by_start[pos.clamp(max=g.n_edges - 1)]
+    return EdgeView(*_gather_fields(g, eids), pos < int(hi))
+
+
+def _entering(lo_prev: int, lo_new: int, capacity: int, device):
+    """The exact entering positions [lo_prev + C, lo_new + C) of one advance
+    (host ints, so no padding slot is ever written)."""
+    shift = int(lo_new) - int(lo_prev)
+    if not 0 <= shift <= capacity:
+        raise ValueError(
+            f"a ring advance needs 0 <= lo_new - lo_prev ({shift}) <= "
+            f"capacity ({capacity})")
+    return torch.arange(int(lo_prev) + capacity, int(lo_new) + capacity,
+                        dtype=torch.int64, device=device)
+
+
+def _scatter_entering(fields, perm, prev: EdgeView, enter, slots) -> None:
+    # end-of-stream positions clamp to the permutation's last entry, as in
+    # the reference: those slots hold its payload bit for bit (masked dead)
+    eids = perm[enter.clamp(max=perm.shape[0] - 1)].long()
+    for p, f in zip(prev[:5], fields):
+        p[slots] = f[eids]
+
+
+def advance_index_ring_fields(fields, perm, prev: EdgeView, lo_prev: int,
+                              lo_new: int, hi_new: int, *, capacity: int) -> EdgeView:
+    """Raw-array form of :func:`advance_index_ring`: ``fields`` is the
+    (src, dst, t_start, t_end, weight) tuple and ``perm`` the time-first
+    permutation.  Writes ``prev``'s tensors IN PLACE and returns the view
+    over them."""
+    enter = _entering(lo_prev, lo_new, capacity, prev.src.device)
+    _scatter_entering(fields, perm, prev, enter, torch.remainder(enter, capacity))
+    prev.mask.copy_(ring_positions(lo_new, capacity, prev.src.device) < int(hi_new))
+    return prev
+
+
+def advance_index_ring(g: TemporalGraph, idx: TGERIndex, prev: EdgeView,
+                       lo_prev: int, lo_new: int, hi_new: int, *, capacity: int) -> EdgeView:
+    """Slide the index ring forward in place: write only the ENTERING
+    positions [lo_prev + C, lo_new + C) into the slots they own (the ones
+    being vacated), then recompute the mask.  Requires 0 <= lo_new - lo_prev
+    <= C (the server checks and falls cold otherwise)."""
+    return advance_index_ring_fields(
+        _fields(g), idx.perm_by_start, prev, lo_prev, lo_new, hi_new,
+        capacity=capacity)
+
+
+def hybrid_ring_view(g: TemporalGraph, idx: TGERIndex, lo: int, hi: int, *,
+                     capacity: int) -> EdgeView:
+    """Cold build of the hybrid ring view: the light partition is a static
+    prefix, the heavy partition a ring over the HEAVY time-first
+    permutation ([lo, hi) are positions in that order).  The same edge SET
+    as a completeness-budgeted ``hybrid_view``."""
+    le = idx.light_eids
+    l_mask = torch.arange(le.shape[0], device=g.device) < idx.n_light_edges
+    pos = ring_positions(lo, capacity, g.device)
+    heavy = idx.heavy_perm_by_start
+    eids = heavy[pos.clamp(max=heavy.shape[0] - 1)]
+    fields = [torch.cat([l, h]) for l, h in zip(_gather_fields(g, le),
+                                                 _gather_fields(g, eids))]
+    return EdgeView(*fields, torch.cat([l_mask, pos < int(hi)]))
+
+
+def advance_hybrid_ring_fields(fields, heavy_perm, prev: EdgeView, lo_prev: int,
+                               lo_new: int, hi_new: int, *, capacity: int) -> EdgeView:
+    """Raw-array form of :func:`advance_hybrid_ring`, in place.  The light
+    prefix length is ``len - C``."""
+    L = prev.src.shape[0] - capacity
+    enter = _entering(lo_prev, lo_new, capacity, prev.src.device)
+    _scatter_entering(fields, heavy_perm, prev, enter,
+                      L + torch.remainder(enter, capacity))
+    prev.mask[L:] = ring_positions(lo_new, capacity, prev.src.device) < int(hi_new)
+    return prev
+
+
+def advance_hybrid_ring(g: TemporalGraph, idx: TGERIndex, prev: EdgeView,
+                        lo_prev: int, lo_new: int, hi_new: int, *, capacity: int) -> EdgeView:
+    """Slide the hybrid ring's heavy partition forward in place (positions
+    over the heavy time-first permutation); the light prefix is untouched."""
+    return advance_hybrid_ring_fields(
+        _fields(g), idx.heavy_perm_by_start, prev, lo_prev, lo_new, hi_new,
+        capacity=capacity)
+
+
+def ring_companion_delta(src_field, perm, prev: EdgeView, lo_prev: int,
+                         lo_new: int, *, capacity: int, light_prefix: int = 0):
+    """Host ``(slots, old_from, new_from)`` of one ring advance: the slots
+    it writes, their source vertex before (``prev`` is the view BEFORE the
+    advance) and after.  ``light_prefix`` offsets hybrid slots past the
+    light partition; end-of-stream positions clamp as the advance does."""
+    lo_prev, lo_new = int(lo_prev), int(lo_new)
+    enter = np.arange(lo_prev + capacity, lo_new + capacity, dtype=np.int64)
+    slots = (light_prefix + (enter % capacity)).astype(np.int32)
+    perm = to_numpy(perm)
+    eids = perm[np.minimum(enter, perm.shape[0] - 1)]
+    old_from = to_numpy(prev.src)[slots]
+    new_from = to_numpy(src_field)[eids]
+    return slots, old_from, new_from
+
+
+def ring_view_for_plan(g: TemporalGraph, tger: Optional[TGERIndex], window,
+                       plan: AccessPlan) -> Tuple[EdgeView, int, int, int]:
+    """Cold ring build for the plan's method: ``(edges, lo, hi, capacity)``
+    with (lo, hi) the host position range the server's advances slide
+    (-1, -1, 0 for scan, whose 'ring' is the untouched graph view)."""
+    if plan.method == "index":
+        if tger is None or plan.budget <= 0:
+            raise ValueError("index access requires a TGER and a positive budget")
+        lo, hi = window_positions_host(tger, window)
+        capacity = plan.ring_capacity or plan.budget
+        if hi - lo > capacity:
+            # a pinned plan whose rung predates this window: the ring holds
+            # only [lo, lo + C), and the mask would validate slots the
+            # gather never filled; refuse instead of serving a partial view
+            raise ValueError(
+                f"window {(int(window[0]), int(window[1]))} spans "
+                f"{hi - lo} time-first positions but the pinned index "
+                f"plan's ring capacity is {capacity}: under this plan the "
+                f"serving horizon is the {capacity} most recent in-window "
+                f"positions (>= position {hi - capacity}), and positions "
+                f"[{lo}, {hi - capacity}) are below it.  Drop the pinned "
+                f"plan so the planner re-rungs the capacity")
+        return index_ring_view(g, tger, lo, hi, capacity=capacity), lo, hi, capacity
+    if plan.method == "hybrid":
+        if tger is None:
+            raise ValueError("hybrid access requires a TGER")
+        lo, hi = heavy_window_positions_host(tger, window)
+        capacity = plan.ring_capacity or rung(max(hi - lo, 16))
+        if hi - lo > capacity:  # the plan's rung predates this window: re-rung
+            capacity = rung(hi - lo)
+        return hybrid_ring_view(g, tger, lo, hi, capacity=capacity), lo, hi, capacity
+    return scan_view(g), -1, -1, 0
+
+
 def _endpoints(edges: EdgeView, direction: str):
     if direction == "out":
         return edges.src, edges.dst
@@ -126,5 +303,14 @@ __all__ = [
     "view_for_plan",
     "union_window",
     "frontier_from_sources",
+    "ring_positions",
+    "index_ring_view",
+    "advance_index_ring",
+    "advance_index_ring_fields",
+    "hybrid_ring_view",
+    "advance_hybrid_ring",
+    "advance_hybrid_ring_fields",
+    "ring_companion_delta",
+    "ring_view_for_plan",
     "INT_INF",
 ]

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hostcache import identity_cache
-from repro_torch.core.selective import CostModel, decide_access
+from repro_torch.core.selective import AccessDecision, CostModel, decide_access
 from repro_torch.core.temporal_graph import TemporalGraph
 from repro_torch.core.tger import (
     TGERIndex,
@@ -56,17 +56,21 @@ class AccessPlan:
     cache_key: str
     n_windows: int = 0               # batched sweep width (0 = single window)
     ring_capacity: int = 0           # ring-view slot count (0 = derive)
+    batch_sig: str = ""              # QueryBatch shape signature ("" = not a batch plan)
 
 
 def _cache_key(method: str, backend: str, budget: int, pvb: int, tile_v: int,
-               block_e: int, n_windows: int, ring_capacity: int) -> str:
+               block_e: int, n_windows: int, ring_capacity: int,
+               batch_sig: str = "") -> str:
     """The JAX package's key format; the exchange budget is 0 (``x0``) and
-    the batch, tier and ladder suffixes are absent in the port so far."""
+    the tier and ladder suffixes are absent in the port so far."""
     key = f"{method}/{backend}/b{budget}/pv{pvb}/x0/t{tile_v}x{block_e}"
     if ring_capacity:
         key += f"/r{ring_capacity}"
     if n_windows:
         key += f"/w{n_windows}"
+    if batch_sig:
+        key += f"/q{batch_sig}"
     return key
 
 
@@ -293,10 +297,56 @@ def plan_query(
     )
 
 
-def plan_batch(*args, **kwargs):
-    """Query-batch planning is not in the port yet."""
-    raise NotImplementedError(
-        "plan_batch (query batches) is ROADMAP.md Queue 1 item 9")
+def plan_batch(
+    g: TemporalGraph,
+    tger: Optional[TGERIndex],
+    batch,
+    *,
+    model: CostModel = CostModel(),
+    access: str = "auto",
+    backend: str = "xla_segment",
+    shards=None,
+    bucketed: bool = False,
+    **kw,
+) -> AccessPlan:
+    """ONE union AccessPlan for a whole :class:`~repro_torch.engine.queries.
+    QueryBatch`: ``plan_query`` over the batch's distinct windows (budgets
+    cover the union and every member window), with the batch's shape
+    signature on the cache key (``batch_sig``).  The signature keys group
+    structure and row counts, never sources or window bounds, so a
+    shape-stable tenant stream keeps one plan.
+
+    ``shards`` (a query mesh) and ``bucketed`` (the admission ladder) are
+    not in the port yet and raise ``NotImplementedError``."""
+    if shards is not None:
+        raise NotImplementedError(
+            "plan_batch(shards=...) (sharded serving) is ROADMAP.md Queue 1 item 14")
+    if bucketed:
+        raise NotImplementedError(
+            "plan_batch(bucketed=True) (bucketed admission) is ROADMAP.md "
+            "Queue 1 item 13")
+    plan = plan_query(g, tger, windows=batch.windows(), model=model,
+                      access=access, backend=backend, **kw)
+    sig = batch.signature()
+    return dataclasses.replace(
+        plan, batch_sig=sig,
+        cache_key=_cache_key(plan.method, plan.backend, plan.budget,
+                             plan.per_vertex_budget, plan.tile_v, plan.block_e,
+                             plan.n_windows, plan.ring_capacity, sig))
+
+
+def decision_for(
+    g: TemporalGraph,
+    tger: Optional[TGERIndex],
+    window,
+    model: CostModel = CostModel(),
+    force: Optional[str] = None,
+) -> AccessDecision:
+    """The planner's scan-vs-index decision for one window (diagnostics)."""
+    if tger is None:
+        return AccessDecision("scan", 0, float(g.n_edges), 1.0, 0.0, 0.0)
+    return decide_access(
+        tger, g.n_edges, (int(window[0]), int(window[1])), model, force=force)
 
 
 __all__ = [
@@ -304,6 +354,7 @@ __all__ = [
     "make_plan",
     "plan_query",
     "plan_batch",
+    "decision_for",
     "per_vertex_window_budget",
     "heavy_window_budget",
     "rung",

@@ -31,6 +31,7 @@ def test_port_imports_no_jax():
         "import repro_torch.core.algorithms.kcore\n"
         "import repro_torch.core.algorithms.reachability\n"
         "import repro_torch.core.algorithms.centrality\n"
+        "import repro_torch.core.onepass, repro_torch.engine.queries\n"
         "import repro_torch.configs, repro_torch.models.transformer\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "from repro_torch.kernels import launch_counts\n"

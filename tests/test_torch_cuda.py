@@ -21,10 +21,14 @@ import torch
 from repro_torch.core import build_tger, plan_query
 from repro_torch.core.algorithms import (
     earliest_arrival,
+    fastest,
     temporal_bfs,
     temporal_cc,
     temporal_pagerank,
 )
+from repro_torch.core.edgemap import advance_index_ring, index_ring_view
+from repro_torch.core.tger import window_positions_host
+from repro_torch.engine import QueryBatch, QuerySpec
 from repro_torch.data.generators import power_law_temporal_graph, transit_temporal_graph
 from repro_torch.engine.backends import segments_for
 from repro_torch.kernels import launch_counts, ops, reset_launch_counts
@@ -32,6 +36,7 @@ from repro_torch.kernels import segment_spmm as spmm
 from repro_torch.kernels import temporal_edgemap as tem
 from repro_torch.kernels import decode_attention as k4
 from repro_torch.models import transformer as ttf
+from repro_torch.serve import serve_batch, sliding_windows
 from repro_torch.serve.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -63,7 +68,7 @@ def _layout_inputs(n_v, n_e, tile_v, block_e, seed):
 
 
 @pytest.mark.parametrize("n_v,n_e,tile_v,block_e", SHAPES)
-@pytest.mark.parametrize("n_windows", [0, 3])
+@pytest.mark.parametrize("n_windows", [0, 3, 32])
 def test_segment_min_tiles_kernel_matches_plain(cuda, n_v, n_e, tile_v, block_e,
                                                 n_windows):
     lay, lane, dst_local, rng = _layout_inputs(n_v, n_e, tile_v, block_e, n_e)
@@ -276,6 +281,67 @@ def test_bfs_and_cc_on_card_match_cpu(cuda):
     (h0, a0, l0, b0, c0), (h1, a1, l1, b1, c1) = runs
     assert torch.equal(h0, h1) and torch.equal(a0, a1) and torch.equal(l0, l1)
     assert (b0, c0) == (0, 0) and b1 > 0 and c1 > 0
+
+
+def test_fastest_on_card_matches_cpu(cuda):
+    """fastest's 32-departure ladder: one K1 launch per round with the
+    departures on grid y (W = 32), equal to the CPU run."""
+    runs = []
+    for dev in ("cpu", cuda):
+        g, idx, win, plan = _small_graph(dev)
+        reset_launch_counts()
+        f = fastest(g, 0, win, idx, plan=plan)
+        runs.append((f.cpu(), launch_counts()["segment_min_tiles"]))
+    (f0, n0), (f1, n1) = runs
+    assert torch.equal(f0, f1) and n0 == 0 and n1 > 0
+
+
+def test_serve_batch_on_card_matches_cpu(cuda):
+    """Three advances of a multi-tenant batch on a tiled scan plan: the
+    integer groups equal the CPU run's, PageRank within its tolerance, and
+    K1 and K3 launch inside the advances."""
+    runs = []
+    for dev in ("cpu", cuda):
+        g, idx, _, _ = _small_graph(dev)
+        t_hi = int(g.t_end.max())
+        width = (t_hi - int(g.t_start.min())) // 10
+        state, out, counts = None, [], []
+        for step in range(3):
+            wins = sliding_windows(t_hi - (2 - step) * width // 4, width, width // 4, 3)
+            batch = QueryBatch.make(
+                [QuerySpec.make("earliest_arrival", tuple(w), sources=[0, 1]) for w in wins]
+                + [QuerySpec.make("bfs", tuple(wins[0]), sources=0),
+                   QuerySpec.make("cc", tuple(wins[1])),
+                   QuerySpec.make("pagerank", tuple(wins[0]), n_iters=10)])
+            reset_launch_counts()
+            res, state = serve_batch(g, batch, idx, state=state, access="scan",
+                                     backend="pallas_tiled")
+            counts.append(launch_counts())
+            out.append(res)
+        runs.append((out, counts, state.last_advance))
+    (o0, c0, a0), (o1, c1, a1) = runs
+    assert a0 == a1 == "reuse"
+    for r0, r1 in zip(o0, o1):
+        for x, y in zip(r0[:2], r1[:2]):
+            for u, v in zip(x if isinstance(x, tuple) else (x,),
+                            y if isinstance(y, tuple) else (y,)):
+                assert torch.equal(u, v.cpu())
+        assert torch.equal(r0[2], r1[2].cpu())
+        torch.testing.assert_close(r1[3].cpu(), r0[3], rtol=1e-5, atol=1e-7)
+    assert all(set(c.values()) == {0} for c in c0)
+    assert all(c["segment_min_tiles"] > 0 and c["segment_spmm_tiles"] == 10 for c in c1)
+
+
+def test_index_ring_advance_on_card_matches_cold_build(cuda):
+    g, idx, _, _ = _small_graph(cuda)
+    t_hi = int(g.t_end.max())
+    lo, hi = window_positions_host(idx, (t_hi - 4000, t_hi - 2000))
+    lo2, hi2 = window_positions_host(idx, (t_hi - 3000, t_hi - 1000))
+    cap = 1 << max(hi - lo, hi2 - lo2, lo2 - lo).bit_length()
+    ring = index_ring_view(g, idx, lo, hi, capacity=cap)
+    ring = advance_index_ring(g, idx, ring, lo, lo2, hi2, capacity=cap)
+    cold = index_ring_view(g, idx, lo2, hi2, capacity=cap)
+    assert all(torch.equal(a, b) for a, b in zip(ring, cold))
 
 
 # -- K4: decode_attention ------------------------------------------------------

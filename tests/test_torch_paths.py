@@ -1,6 +1,9 @@
-"""Earliest arrival end to end in the port against the JAX package and the
-numpy oracle: every plan cell, strict/visit-once/metrics/multi-source
-variants, the batched solver and the window sweep.  Exact equality."""
+"""The temporal-path algorithms in the port against the JAX package and the
+numpy oracles: earliest arrival end to end (every plan cell, strict /
+visit-once / metrics / multi-source variants, the batched solver and the
+window sweep), then latest departure, fastest and shortest duration in
+every plan cell.  Exact equality (shortest duration's float32 staircase is
+min-only arithmetic, so bit for bit too)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,9 +18,16 @@ import repro_torch.core.algorithms as talg
 import repro_torch.core.predicates as tpred
 import repro_torch.engine.plan as tplan
 import repro_torch.serve.window_sweep as tsweep
+import repro.core.reference as R
+import repro.data.generators as jgen
+import repro.engine as jengine
+import repro_torch.data.generators as tgen
+import repro_torch.engine as tengine
 from repro.core.reference import earliest_arrival_ref
+from repro.core.tger import build_tger as jbuild
 from repro_torch.core.edgemap import view_for_plan
-from test_torch_common import as_np, both_graphs, query_setup
+from repro_torch.core.tger import build_tger as tbuild
+from test_torch_common import CELLS, as_np, assert_same, both_graphs, plans, query_setup
 
 INF = 2**31 - 1
 
@@ -146,3 +156,109 @@ def test_sweep_rejects_other_algorithms():
         talg.earliest_arrival_batched(tg, [0, 1], [wins[0]], ti)
     with pytest.raises(ValueError):
         tsweep.sliding_windows(10, 0, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# latest departure, fastest, shortest duration
+# ---------------------------------------------------------------------------
+
+SUCCEEDS = ("SUCCEEDS", "STRICTLY_SUCCEEDS")
+
+
+def _preds(name):
+    return (getattr(jpred.OrderingPredicateType, name),
+            getattr(tpred.OrderingPredicateType, name))
+
+
+@pytest.mark.parametrize("kind", ["power_law", "transit"])
+@pytest.mark.parametrize("access,backend", CELLS)
+def test_rest_of_paths_plan_cells(kind, access, backend):
+    """latest_departure, fastest and shortest_duration equal the JAX
+    package's in every plan cell, on every window from both sources."""
+    jg, tg, ji, ti, wins, sources = _setup(kind)
+    for w in wins:
+        jp, tp = plans(jg, tg, ji, ti, access, backend, window=w)
+        for s in sources:
+            for name in ("latest_departure", "fastest", "shortest_duration"):
+                want = getattr(jalg, name)(jg, s, w, ji, plan=jp)
+                got = getattr(talg, name)(tg, s, w, ti, plan=tp)
+                assert_same(want, got)
+
+
+@pytest.mark.parametrize("kind", ["power_law", "transit"])
+@pytest.mark.parametrize("pred", SUCCEEDS)
+def test_rest_of_paths_predicates(kind, pred):
+    """Both succeeds predicates on the tiled and the index plan; fastest
+    with a departure ladder longer than the source's window range."""
+    jg, tg, ji, ti, wins, sources = _setup(kind)
+    jpr, tpr = _preds(pred)
+    w, s = wins[0], sources[0]
+    for access, backend in (("scan", "pallas_tiled"), ("index", "xla_segment")):
+        jp, tp = plans(jg, tg, ji, ti, access, backend, window=w)
+        for name, kw in (("latest_departure", {}), ("fastest", {"n_departures": 64}),
+                         ("shortest_duration", {})):
+            assert_same(getattr(jalg, name)(jg, s, w, ji, plan=jp, pred=jpr, **kw),
+                        getattr(talg, name)(tg, s, w, ti, plan=tp, pred=tpr, **kw))
+
+
+def test_latest_departure_rejects_overlaps():
+    _, tg, _, ti, wins, sources = _setup("transit")
+    with pytest.raises(ValueError, match="succeeds predicates"):
+        talg.latest_departure(tg, sources[0], wins[0], ti,
+                              pred=tpred.OrderingPredicateType.OVERLAPS)
+
+
+@pytest.mark.parametrize("n_buckets", [7, 64, 100])
+@pytest.mark.parametrize("use_weights", [False, True])
+def test_shortest_duration_buckets_bit_identical(n_buckets, use_weights):
+    """The staircase's bucket bounds round as the compiled JAX program's
+    (a multiplication by 1/P), so P = 7 and 100 agree bit for bit too."""
+    jg, tg, ji, ti, wins, sources = _setup("power_law")
+    for w in wins:
+        want = jalg.shortest_duration(jg, sources[0], w, ji, n_buckets=n_buckets,
+                                      use_weights=use_weights)
+        got = talg.shortest_duration(tg, sources[0], w, ti, n_buckets=n_buckets,
+                                     use_weights=use_weights)
+        assert_same(want, got)
+
+
+_GOLDEN = {}
+
+
+def _golden(seed):
+    """test_golden_reference.py's case: a synthetic graph, its TGER and the
+    three covering plans, in both packages."""
+    if seed not in _GOLDEN:
+        jg = jgen.synthetic_temporal_graph(36, 240, seed=seed)
+        tg = tgen.synthetic_temporal_graph(36, 240, seed=seed, device="cpu")
+        ji = jbuild(jg, degree_cutoff=8, n_time_buckets=8)
+        ti = tbuild(tg, degree_cutoff=8, n_time_buckets=8)
+        ts = np.asarray(jg.t_start)
+        win = (int(np.quantile(ts, 0.3)), int(np.asarray(jg.t_end).max()))
+        in_win = int(((ts >= win[0]) & (ts <= win[1])).sum())
+        budget = max(64, 1 << in_win.bit_length())
+        kb = jengine.per_vertex_window_budget(jg, ji, win)
+        assert kb == tplan.per_vertex_window_budget(tg, ti, win)
+        cells = {"scan": dict(), "index": dict(budget=budget),
+                 "hybrid": dict(per_vertex_budget=kb)}
+        src = int(np.asarray(jg.src)[seed % jg.n_edges])
+        _GOLDEN[seed] = (jg, tg, ti, win, cells, src)
+    return _GOLDEN[seed]
+
+
+@pytest.mark.parametrize("seed", [5, 19])
+def test_rest_of_paths_against_oracles(seed):
+    """The oracles of repro/core/reference.py, as test_golden_reference.py
+    holds the JAX package to them, through scan, index and hybrid plans."""
+    jg, tg, ti, win, cells, src = _golden(seed)
+    ld = R.latest_departure_ref(jg, src, win)
+    fa = R.fastest_ref(jg, src, win)
+    sd = R.shortest_duration_ref(jg, src, win)
+    finite = np.isfinite(sd)
+    for method, kw in cells.items():
+        plan = tengine.make_plan(method, **kw)
+        assert (as_np(talg.latest_departure(tg, src, win, ti, plan=plan)) == ld).all()
+        assert (as_np(talg.fastest(tg, src, win, ti, plan=plan, n_departures=256))
+                == fa).all(), method
+        got = as_np(talg.shortest_duration(tg, src, win, ti, plan=plan, n_buckets=256))
+        assert (np.isfinite(got) == finite).all() and (got[finite] == sd[finite]).all()

@@ -12,6 +12,7 @@ import repro_torch.core.selective as tsel
 import repro_torch.core.tger as ttger
 import repro_torch.data.generators as tgen
 import repro_torch.engine.plan as tplan
+import repro_torch.engine.queries as tqueries
 import repro_torch.kernels.layout as tlayout
 from test_torch_common import CPU, as_np, assert_fields_equal
 
@@ -107,8 +108,13 @@ def test_out_of_slice_options_raise(kw, item):
 
 
 def test_plan_batch_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tplan.plan_batch(None, None, None)
+    """plan_batch is ported; its sharded and bucketed forms are not yet."""
+    _, tg, _, ti = _pair("power_law", 7)
+    batch = tqueries.QueryBatch.make([tqueries.QuerySpec.make("cc", (0, 10))])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tplan.plan_batch(tg, ti, batch, shards=2)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tplan.plan_batch(tg, ti, batch, bucketed=True)
 
 
 @pytest.mark.parametrize("kind", ["power_law", "transit"])
