@@ -34,9 +34,10 @@
    float32 against its plain version, timed beside it, beside
    scaled_dot_product_attention and beside its bytes bound: warm (one set of
    caches), and in bfloat16 cold (four sets in turn, past the L2) at those
-   lengths and at serving lengths (16-576).  With ``--compare DIR``, K3 and
-   K4 as built from the sources in DIR (the kernels before their redesign)
-   are timed in turns with these (old, new, new, old).
+   lengths and at serving lengths (16-576).  With ``--compare DIR``, the
+   kernels of each source present in DIR (``temporal_edgemap.cu``,
+   ``segment_spmm.cu``, ``decode_attention.cu``: the kernels before their
+   redesign) are built and timed in turns with these (old, new, new, old).
 6. LM continuous batching at phi4-mini-3.8b's published widths (32 layers,
    bfloat16, random weights from ``--seed``): a ServeEngine of 8 slots x
    2048 positions serves 16 seeded requests (prompts of 16-512 tokens,
@@ -79,6 +80,9 @@ PAGERANK_BIG_VIEW = 8
 PAGERANK_BIG_VIEW_ITERS = 10
 SPMM_TOL = dict(rtol=2e-4, atol=2e-4)   # the JAX kernel sweep's tolerance
 KERNEL_STEMS = ("temporal_edgemap", "segment_spmm", "decode_attention")
+# the port's kernels by their names in a profiler trace
+PORT_KERNELS = ("segment_min_tiles_kernel", "temporal_relax_min_tiles_kernel",
+                "segment_spmm_tiles_kernel", "decode_attention_kernel")
 # K4 against its plain version: float32 at the reference kernel's
 # tolerance; bfloat16 against the plain version on float32 copies of the
 # same inputs, rounded to bfloat16 once, which is the kernel's own
@@ -174,9 +178,10 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compare", metavar="DIR",
-                   help="also time K3 and K4 as built from DIR/segment_spmm.cu and "
-                        "DIR/decode_attention.cu, their sources before the redesign "
-                        "(C entry points as PARENT_SIGNATURES), in turns with these")
+                   help="also time the kernels built from DIR/temporal_edgemap.cu (K1, "
+                        "K2), DIR/segment_spmm.cu (K3) and DIR/decode_attention.cu (K4), "
+                        "whichever are present: their sources before the redesign (C "
+                        "entry points as PARENT_SIGNATURES), in turns with these")
     return p.parse_args(argv)
 
 
@@ -234,48 +239,95 @@ def rotating(fn, sets):
     return lambda: fn(*sets[next(calls) % len(sets)])
 
 
-# ``--compare DIR``: K3 and K4 as they were before their redesign, built
-# from DIR/segment_spmm.cu and DIR/decode_attention.cu (not in the
-# repository), timed in turns with this checkout's kernels.  Their C entry
-# points: K3 adds into a zero-filled float64 output, rounded to float32
-# afterwards; K4 takes float32 partial scratch for ceil(S / 128) splits.
+# ``--compare DIR``: kernels as they were before their redesign, built
+# from DIR/<stem>.cu (not in the repository) for each stem present there,
+# timed in turns with this checkout's kernels.  Their C entry points, as
+# (pointers, ints) before the stream, and for K4 the count of ints after
+# its float: K1 and K2 min into an INT_MAX-filled output; K3 adds into a
+# zero-filled float64 output, rounded to float32 afterwards; K4 takes
+# float32 partial scratch for ceil(S / 128) splits.
 PARENT_SIGNATURES = {
-    "segment_spmm": ("segment_spmm_tiles_launch", 5, 6),
-    "decode_attention": ("decode_attention_launch", 6, 6),
+    "temporal_edgemap": {"segment_min_tiles_launch": (4, 5),
+                         "temporal_relax_min_tiles_launch": (7, 7)},
+    "segment_spmm": {"segment_spmm_tiles_launch": (5, 6)},
+    "decode_attention": {"decode_attention_launch": (6, 6, 2)},
 }
 PARENT_K4_CHUNK = 128
 
 
 def build_parent(src_dir):
-    """Compile the two earlier sources with the checkout's nvcc flags and
-    bind their entry points; returns stem -> function."""
+    """Compile each earlier source present in ``src_dir`` with the
+    checkout's nvcc flags, in parallel, and bind its entry points; returns
+    entry point name -> function."""
     import ctypes
 
     from repro_torch.kernels import build
 
     P, I = ctypes.c_void_p, ctypes.c_int
-    fns = {}
-    for stem, (fn, n_ptr, n_int) in PARENT_SIGNATURES.items():
+    stems = [s for s in PARENT_SIGNATURES if (Path(src_dir) / f"{s}.cu").is_file()]
+    if not stems:
+        raise RuntimeError(f"--compare {src_dir}: none of "
+                           f"{', '.join(s + '.cu' for s in PARENT_SIGNATURES)} there")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def compile_one(stem):
         lib_path = build.BUILD_DIR / f"parent-{stem}.so"
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
                                str(Path(src_dir) / f"{stem}.cu")],
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the earlier {stem}.cu:\n{proc.stderr}")
-        f = getattr(ctypes.CDLL(str(lib_path)), fn)
-        f.argtypes = ([P] * n_ptr + [I] * n_int + [P] if stem == "segment_spmm" else
-                      [P] * n_ptr + [I] * n_int + [ctypes.c_float] + [I] * 2 + [P])
-        f.restype = I
-        fns[stem] = f
+        return lib_path
+
+    with ThreadPoolExecutor(len(stems)) as pool:
+        paths = dict(zip(stems, pool.map(compile_one, stems)))
+    fns = {}
+    for stem, lib_path in paths.items():
+        lib = ctypes.CDLL(str(lib_path))
+        for fn, (n_ptr, n_int, *rest) in PARENT_SIGNATURES[stem].items():
+            f = getattr(lib, fn)
+            f.argtypes = ([P] * n_ptr + [I] * n_int
+                          + ([ctypes.c_float] + [I] * rest[0] if rest else []) + [P])
+            f.restype = I
+            fns[fn] = f
+    log(f"--compare: built {', '.join(s + '.cu' for s in stems)} from {src_dir}")
     return fns
+
+
+def parent_for(parent, fn):
+    """``parent`` where it holds the earlier ``fn``, else None."""
+    return parent if parent and fn in parent else None
+
+
+def parent_k1(torch, parent, dst_local, cand, block_tile, nt, *, tile_v, block_e):
+    w = cand.shape[0] if cand.dim() == 2 else 1
+    out = torch.full((w, nt, tile_v), INF, dtype=torch.int32, device=cand.device)
+    rc = parent["segment_min_tiles_launch"](
+        dst_local.data_ptr(), cand.data_ptr(), block_tile.data_ptr(), out.data_ptr(),
+        block_tile.shape[0], nt, tile_v, block_e, w, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"earlier K1: launch failed (cudaError {rc})")
+    return out if cand.dim() == 2 else out[0]
+
+
+def parent_k2(torch, parent, dst_local, arr, ts, te, valid, block_tile, window, nt, *,
+              tile_v, block_e, strict=False):
+    out = torch.full((nt, tile_v), INF, dtype=torch.int32, device=arr.device)
+    rc = parent["temporal_relax_min_tiles_launch"](
+        dst_local.data_ptr(), arr.data_ptr(), ts.data_ptr(), te.data_ptr(),
+        valid.data_ptr(), block_tile.data_ptr(), out.data_ptr(), block_tile.shape[0], nt,
+        tile_v, block_e, int(window[0]), int(window[1]), int(strict),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"earlier K2: launch failed (cudaError {rc})")
+    return out
 
 
 def parent_k3(torch, parent, dst_local, msgs, valid, block_tile, nt, *, tile_v, block_e):
     w = msgs.shape[0] if msgs.dim() == 3 else 1
     out = torch.zeros((w, nt, tile_v, msgs.shape[-1]), dtype=torch.float64,
                       device=msgs.device)
-    rc = parent["segment_spmm"](
+    rc = parent["segment_spmm_tiles_launch"](
         dst_local.data_ptr(), msgs.data_ptr(), valid.data_ptr(), block_tile.data_ptr(),
         out.data_ptr(), block_tile.shape[0], nt, tile_v, block_e, msgs.shape[-1], w,
         torch.cuda.current_stream().cuda_stream)
@@ -294,7 +346,7 @@ def parent_k4(torch, parent, q, k, v, lens):
     part = torch.empty((B, KH, -(-S // PARENT_K4_CHUNK), H // KH, Dh + 2),
                        dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    rc = parent["decode_attention"](
+    rc = parent["decode_attention_launch"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), part.data_ptr(),
         out.data_ptr(), B, S, KH, H // KH, Dh, PARENT_K4_CHUNK,
         ctypes.c_float(1.0 / math.sqrt(Dh)), int(q.dtype == torch.bfloat16),
@@ -329,9 +381,11 @@ def ea_oracle(np, src, dst, ts, te, n_v, source, window):
     return arr
 
 
-def kernel_phases(torch, np, g, plan, window, seed, tem, segments_for):
-    """K1 (one window and W=8) and K2 (strict False/True) on random inputs
-    at the plan's layout shapes, each against its plain version."""
+def kernel_phases(torch, np, g, plan, window, seed, tem, segments_for, parent=None):
+    """K1 (W = 1, 8 and 32 windows per launch) and K2 (strict False/True)
+    on random inputs at the plan's layout shapes, each against its plain
+    version, and with ``parent`` (``--compare``) timed in turns with the
+    kernels before their redesign."""
     dev = g.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -345,6 +399,7 @@ def kernel_phases(torch, np, g, plan, window, seed, tem, segments_for):
         f"{nt - int(torch.unique(block_tile).numel())} empty tiles; "
         f"{int((~lane).sum())} padding slots")
     glob = (block_tile.long().repeat_interleave(be) * tv + dst_local.long())
+    kw = dict(tile_v=tv, block_e=be)
 
     def rand_cand(shape, p_finite):
         c = torch.randint(0, 100_000, shape, generator=gen, device=dev, dtype=torch.int32)
@@ -352,56 +407,49 @@ def kernel_phases(torch, np, g, plan, window, seed, tem, segments_for):
         return torch.where(keep & lane, c, INF).contiguous()
 
     rows = []
-    # K1, one window
-    cand = rand_cand((ep,), 0.1)
-    got = tem.segment_min_tiles(dst_local, cand, block_tile, nt, tile_v=tv, block_e=be)
-    want = tem.segment_min_tiles_plain(dst_local, cand, block_tile, nt, tile_v=tv, block_e=be)
-    err = max_abs_err(torch, got, want)
-    lib_out = torch.full((nt * tv,), INF, dtype=torch.int32, device=dev)
-    k1 = dict(
-        ms=cuda_ms(torch, lambda: tem.segment_min_tiles(
-            dst_local, cand, block_tile, nt, tile_v=tv, block_e=be)),
-        plain_ms=cuda_ms(torch, lambda: tem.segment_min_tiles_plain(
-            dst_local, cand, block_tile, nt, tile_v=tv, block_e=be)),
-        library_ms=cuda_ms(torch, lambda: lib_out.scatter_reduce_(
-            0, glob, cand, "amin")),
-    )
-    k1["bound_ms"], k1["bound_by"] = bound_ms(8 * ep + 4 * nb + 4 * nt * tv, 2 * ep)
-    log(f"K1 segment_min_tiles [{ep}]: bit-identical; {k1}")
-
-    # K1, W windows in one launch: W=8 (the sweeps) and W=32 (fastest's
-    # departure ladder, the serving path's EA group); the slow plain and
-    # library calls at W=32 are timed over fewer calls
-    windowed = {}
-    for W, iters in ((8, TIMING_ITERS), (32, 5)):
-        cand_w = rand_cand((W, ep), 0.1)
-        got = tem.segment_min_tiles(dst_local, cand_w, block_tile, nt, tile_v=tv,
-                                    block_e=be)
-        want = tem.segment_min_tiles_plain(dst_local, cand_w, block_tile, nt, tile_v=tv,
-                                           block_e=be)
-        err = max(err, max_abs_err(torch, got, want))
-        del got, want
+    # K1 at one window and at W windows per launch: W=8 (the sweeps) and
+    # W=32 (fastest's departure ladder, the serving path's EA group); the
+    # slow plain and library calls at W=32 are timed over fewer calls
+    err, k1 = 0, {}
+    for W, iters in ((1, TIMING_ITERS), (8, TIMING_ITERS), (32, 5)):
+        cand = rand_cand((W, ep) if W > 1 else (ep,), 0.1)
+        args = (dst_local, cand, block_tile, nt)
+        want = tem.segment_min_tiles_plain(*args, **kw)
+        err = max(err, max_abs_err(torch, tem.segment_min_tiles(*args, **kw), want))
+        old = None
+        if parent:
+            max_abs_err(torch, parent_k1(torch, parent, *args, **kw), want)
+            old = lambda: parent_k1(torch, parent, *args, **kw)  # noqa: E731
+        del want
         glob_w = (glob[None, :] + torch.arange(W, device=dev)[:, None] * nt * tv).reshape(-1)
         lib_w = torch.full((W * nt * tv,), INF, dtype=torch.int32, device=dev)
-        flat_w = cand_w.reshape(-1)
-        k1w = dict(
-            ms=cuda_ms(torch, lambda: tem.segment_min_tiles(
-                dst_local, cand_w, block_tile, nt, tile_v=tv, block_e=be)),
-            plain_ms=cuda_ms(torch, lambda: tem.segment_min_tiles_plain(
-                dst_local, cand_w, block_tile, nt, tile_v=tv, block_e=be), iters=iters),
+        flat_w = cand.reshape(-1)
+        ms, parent_ms, turns = timed_pair(
+            torch, lambda: tem.segment_min_tiles(*args, **kw), old)
+        rec = dict(
+            ms=ms,
+            plain_ms=cuda_ms(torch, lambda: tem.segment_min_tiles_plain(*args, **kw),
+                             iters=iters),
             library_ms=cuda_ms(torch, lambda: lib_w.scatter_reduce_(
                 0, glob_w, flat_w, "amin"), iters=iters),
         )
-        k1w["bound_ms"], k1w["bound_by"] = bound_ms(
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
             4 * ep + 4 * W * ep + 4 * nb + 4 * W * nt * tv, 2 * W * ep)
-        log(f"K1 segment_min_tiles [W={W}, {ep}]: bit-identical; {k1w}")
-        windowed[f"windowed_w{W}"] = k1w
-        del cand_w, glob_w, lib_w, flat_w
+        rec["bound_share"] = rec["bound_ms"] / ms
+        if parent:
+            rec.update(parent_ms=parent_ms, ab_turns_ms=turns,
+                       parent_bound_share=rec["bound_ms"] / parent_ms)
+        log(f"K1 segment_min_tiles [W={W}, {ep}]: bit-identical; {rec}")
+        if W == 1:
+            k1 = rec
+        else:
+            k1[f"windowed_w{W}"] = rec
+        del cand, args, glob_w, lib_w, flat_w
     rows.append(dict(
         name="segment_min_tiles", route="cuda",
         source="src/repro_torch/kernels/csrc/temporal_edgemap.cu",
         replaces="src/repro/kernels/temporal_edgemap.py:156",
-        max_abs_err=err, **k1, **windowed))
+        max_abs_err=err, **k1))
 
     # K2, strict False and True; times at strict=False
     perm = plan.layout_perm
@@ -413,25 +461,29 @@ def kernel_phases(torch, np, g, plan, window, seed, tem, segments_for):
                         device=dev, dtype=torch.int32)
     arr = torch.where(torch.rand(ep, generator=gen, device=dev) < 0.5, arr, INF).contiguous()
     err2 = 0
+    args2 = (dst_local, arr, ts, te, valid, block_tile, window, nt)
     for strict in (False, True):
-        got = tem.temporal_relax_min_tiles(dst_local, arr, ts, te, valid, block_tile,
-                                           window, nt, tile_v=tv, block_e=be, strict=strict)
-        want = tem.temporal_relax_min_tiles_plain(dst_local, arr, ts, te, valid, block_tile,
-                                                  window, nt, tile_v=tv, block_e=be,
-                                                  strict=strict)
-        err2 = max(err2, max_abs_err(torch, got, want))
+        want = tem.temporal_relax_min_tiles_plain(*args2, **kw, strict=strict)
+        err2 = max(err2, max_abs_err(
+            torch, tem.temporal_relax_min_tiles(*args2, **kw, strict=strict), want))
+        if parent:
+            max_abs_err(torch, parent_k2(torch, parent, *args2, **kw, strict=strict), want)
     cand2 = tem.relax_candidates(arr, ts, te, valid, window, False)
+    lib_out = torch.full((nt * tv,), INF, dtype=torch.int32, device=dev)
+    ms, parent_ms, turns = timed_pair(
+        torch, lambda: tem.temporal_relax_min_tiles(*args2, **kw),
+        (lambda: parent_k2(torch, parent, *args2, **kw)) if parent else None)
     k2 = dict(
-        ms=cuda_ms(torch, lambda: tem.temporal_relax_min_tiles(
-            dst_local, arr, ts, te, valid, block_tile, window, nt, tile_v=tv,
-            block_e=be)),
-        plain_ms=cuda_ms(torch, lambda: tem.temporal_relax_min_tiles_plain(
-            dst_local, arr, ts, te, valid, block_tile, window, nt, tile_v=tv,
-            block_e=be)),
+        ms=ms,
+        plain_ms=cuda_ms(torch, lambda: tem.temporal_relax_min_tiles_plain(*args2, **kw)),
         library_ms=cuda_ms(torch, lambda: lib_out.scatter_reduce_(
             0, glob, cand2, "amin")),
     )
     k2["bound_ms"], k2["bound_by"] = bound_ms(20 * ep + 4 * nb + 4 * nt * tv, 8 * ep)
+    k2["bound_share"] = k2["bound_ms"] / ms
+    if parent:
+        k2.update(parent_ms=parent_ms, ab_turns_ms=turns,
+                  parent_bound_share=k2["bound_ms"] / parent_ms)
     log(f"K2 temporal_relax_min_tiles [{ep}]: bit-identical (strict both); {k2}")
     rows.append(dict(
         name="temporal_relax_min_tiles", route="cuda",
@@ -959,9 +1011,12 @@ def paths_path(torch, np, name, g, tger, fields, windows, sources):
                 f"{c} {t:.3f} ms (K1 {k1[c]})" for c, t in ms.items()) + f"; {note}")
             records.append(dict(graph=name, algorithm=alg, window=wname, ms=ms,
                                 k1_launches=k1))
-    # fastest against the oracle from a source with a few distinct departures
+    # fastest against the oracle from a source with a few distinct departures,
+    # after a profile of the narrow query (its ladders run K1 at W = 32)
     win = windows["narrow"]
     plan = plan_query(g, tger, win, access="scan", backend="pallas_tiled")
+    profile_query(torch, f"[{name}] fastest narrow src={s} scan/pallas_tiled",
+                  lambda: fastest(g, s, win, tger, plan=plan))
     active = np.unique(src_np[(ts_np >= win[0]) & (ts_np <= win[1])])
     fsrc = next(int(v) for v in active[np.argsort(-np.diff(offsets)[active])]
                 if 2 <= len(departures(np, fields, offsets, v, win)) <= 6)
@@ -1792,6 +1847,10 @@ def profile_query(torch, label, fn, top: int = 8, warm: bool = True) -> dict:
         f"kernel launches")
     for e in kernels[:top]:
         log(f"  {e.self_device_time_total:10.1f} us  x{e.count:<5d} {e.key[:90]}")
+    for e in kernels:
+        if any(k in e.key for k in PORT_KERNELS):
+            log(f"  port kernel {e.key[:60]}: {e.self_device_time_total:.1f} us in "
+                f"{e.count} launches, {e.self_device_time_total / busy_us:.3f} of device busy")
     return dict(wall_us=wall_us, busy_us=busy_us,
                 by_kernel={e.key: e.self_device_time_total for e in kernels},
                 count_by_kernel={e.key: e.count for e in kernels})
@@ -1863,9 +1922,10 @@ def main(argv=None) -> int:
     g, plan = layouts["power_law"]
     t_lo, t_hi = int(g.t_start.min()), int(g.t_end.max())
     rows = kernel_phases(torch, np, g, plan, (t_hi - (t_hi - t_lo) // 50, t_hi),
-                         args.seed, tem, segments_for)
+                         args.seed, tem, segments_for,
+                         parent_for(parent, "segment_min_tiles_launch"))
     rows.append(spmm_phases(torch, np, layouts, args.seed, spmm, ops, segments_for,
-                            parent))
+                            parent_for(parent, "segment_spmm_tiles_launch")))
 
     contexts = {name: graph_context(torch, np, name, g) for name, g in graphs.items()}
 
@@ -1894,7 +1954,8 @@ def main(argv=None) -> int:
     cfg = get_arch(LM_ARCH).cfg
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed + 2)
-    rows.append(decode_phases(torch, np, cfg, gen, k4, parent))
+    rows.append(decode_phases(torch, np, cfg, gen, k4,
+                              parent_for(parent, "decode_attention_launch")))
     gen.manual_seed(args.seed)
     t0 = time.perf_counter()
     model = init_lm(cfg, gen, "cuda")
@@ -1907,7 +1968,10 @@ def main(argv=None) -> int:
     del model
     records += lm_records
     counts["decode_attention"] = lm_counts["decode_attention"]
-    # the redesigned kernels' instances on the main paths: registers, spills
+    # the kernels' instances on the main paths: registers, spills
+    for row in rows[:2]:  # K1: its one-window and its windowed instance
+        row["ptxas"] = {k: v for k, v in ptxas["temporal_edgemap"].items()
+                        if k.startswith(f"{row['name']}_kernel")}
     rows[2]["ptxas"] = ptxas["segment_spmm"].get("segment_spmm_tiles_kernel")
     rows[3]["ptxas"] = {f"<{t}, G={G}>": ptxas["decode_attention"].get(
         f"decode_attention_kernel<{t}, {v}, {G}>") for t, v in (("bf16", 8), ("f32", 4))

@@ -28,12 +28,12 @@ _I = ctypes.c_int
 # C signatures of every kernel entry point, by source stem.
 SIGNATURES = {
     "temporal_edgemap": {
-        # dst_local, cand, block_tile, out, n_blocks, n_tiles, tile_v,
-        # block_e, n_windows, stream
-        "segment_min_tiles_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # dst_local, arr, ts, te, valid, block_tile, out, n_blocks, n_tiles,
-        # tile_v, block_e, ta, tb, strict, stream
-        "temporal_relax_min_tiles_launch": [_P] * 7 + [_I] * 7 + [_P],
+        # dst_local, cand, block_tile, tile_start, out, scratch, counter,
+        # n_blocks, n_tiles, tile_v, block_e, n_windows, windows per CTA, stream
+        "segment_min_tiles_launch": [_P] * 7 + [_I] * 6 + [_P],
+        # dst_local, arr, ts, te, valid, block_tile, tile_start, out, scratch,
+        # counter, n_blocks, n_tiles, tile_v, block_e, ta, tb, strict, stream
+        "temporal_relax_min_tiles_launch": [_P] * 10 + [_I] * 7 + [_P],
     },
     "segment_spmm": {
         # dst_local, messages, valid, block_tile, out, scratch, counter,

@@ -32,11 +32,20 @@ def prepare_layout(dst, n_vertices: int, tile_v: int = 512,
 def _layout_cached(dst, n_vertices: int, tile_v: int, block_e: int) -> TileLayout:
     layout = build_tile_layout(to_numpy(dst), n_vertices, tile_v, block_e)
     device = dst.device if isinstance(dst, torch.Tensor) else "cpu"
+    block_tile = torch.as_tensor(layout.block_tile, device=device)
+    tile_starts(block_tile, layout.n_tiles)  # derived here, once per layout
     return dataclasses.replace(
-        layout,
-        perm=torch.as_tensor(layout.perm, device=device),
-        block_tile=torch.as_tensor(layout.block_tile, device=device),
-    )
+        layout, perm=torch.as_tensor(layout.perm, device=device), block_tile=block_tile)
+
+
+@identity_cache(16)
+def tile_starts(block_tile, n_tiles: int):
+    """Each tile's first block, int32 [n_tiles + 1] on ``block_tile``'s
+    device: tile t owns blocks [s[t], s[t + 1]) of the nondecreasing
+    ``block_tile``, none where the two are equal.  The tile-min kernels read
+    it to find the tiles that own no block; cached per ``block_tile``."""
+    probe = torch.arange(n_tiles + 1, dtype=torch.int32, device=block_tile.device)
+    return torch.searchsorted(block_tile, probe, out_int32=True)
 
 
 def _gather_padded(arr, perm, fill):
@@ -130,4 +139,4 @@ def spmm(
     return tiles.reshape(-1, messages.shape[-1])[:n_vertices]
 
 
-__all__ = ["prepare_layout", "relax_min", "earliest_arrival_kernel", "spmm"]
+__all__ = ["prepare_layout", "tile_starts", "relax_min", "earliest_arrival_kernel", "spmm"]

@@ -9,7 +9,10 @@ sources are ``csrc/temporal_edgemap.cu``.
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version, a
 CUDA tensor launches the kernel or raises.  Each wrapper counts its
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches``.  The layout's ``block_tile`` must be
+nondecreasing (a tile's blocks consecutive), as ``build_tile_layout``
+emits it: the kernels finish a tile when its blocks end.  The wrappers
+check that on the CPU, where it costs no device sync.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from repro_torch.kernels import build
 INT_INF = 2**31 - 1
 _MAX_SMEM = 48 * 1024   # static-launch dynamic shared memory limit
 _MAX_GRID_Y = 65535
+_CTA_SMEM = 224 * 1024  # of the 227 KB a Hopper CTA can have
+_MAX_WINDOWS_PER_CTA = 32
 
 
 def _check(name: str, device: torch.device, **tensors) -> None:
@@ -50,6 +55,38 @@ def _device_for(name: str, t: torch.Tensor) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
     raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def _check_ordered(name: str, block_tile) -> None:
+    if bool((block_tile[1:] < block_tile[:-1]).any()):
+        raise ValueError(f"{name}: block_tile must be nondecreasing (a tile's "
+                         f"blocks consecutive, as build_tile_layout emits them)")
+
+
+def _tile_starts(block_tile, n_tiles: int):
+    # imported here: ops imports this module
+    from repro_torch.kernels.ops import tile_starts
+
+    return tile_starts(block_tile, n_tiles)
+
+
+def windows_per_cta(n_windows: int, tile_v: int) -> int:
+    """Windows one K1 CTA min-combines together, one tile_v accumulator
+    each in shared memory: W cut into equal chunks (one per grid row) of at
+    most 32 windows and of what 224 KB hold."""
+    most = min(_MAX_WINDOWS_PER_CTA, _CTA_SMEM // (4 * tile_v))
+    n_chunks = -(-n_windows // most)
+    return -(-n_windows // n_chunks)
+
+
+def _flush_buffers(n_windows: int, n_chunks: int, n_tiles: int, tile_v: int, device):
+    """The kernels' zeroed scratch tiles and per-(chunk, tile) counters,
+    left at zero by every launch; K1 and K2 share them."""
+    scratch = build.stream_zeros("tile_min", n_windows * n_tiles * tile_v, torch.int32,
+                                 device)
+    counter = build.stream_zeros("tile_min_count", n_chunks * n_tiles, torch.int32,
+                                 device)
+    return scratch, counter
 
 
 # ---------------------------------------------------------------------------
@@ -90,18 +127,24 @@ def segment_min_tiles(dst_local, cand, block_tile, n_tiles: int, *,
         raise ValueError(f"{name}: cand has shape {tuple(cand.shape)}, expected "
                          f"({ep},) or (W, {ep})")
     if _device_for(name, cand) == "cpu":
+        _check_ordered(name, block_tile)
         return segment_min_tiles_plain(dst_local, cand, block_tile, n_tiles,
                                        tile_v=tile_v, block_e=block_e)
     n_windows = cand.shape[0] if cand.dim() == 2 else 1
     if not 1 <= n_windows <= _MAX_GRID_Y:
         raise ValueError(f"{name}: {n_windows} windows, expected 1..{_MAX_GRID_Y}")
-    out = torch.full((n_windows, n_tiles, tile_v), INT_INF, dtype=torch.int32,
-                     device=cand.device)
+    wc = windows_per_cta(n_windows, tile_v)
+    out = torch.empty((n_windows, n_tiles, tile_v), dtype=torch.int32,
+                      device=cand.device)
+    scratch, counter = _flush_buffers(n_windows, -(-n_windows // wc), n_tiles, tile_v,
+                                      cand.device)
     lib = build.library("temporal_edgemap")
     rc = lib.segment_min_tiles_launch(
         dst_local.data_ptr(), cand.data_ptr(), block_tile.data_ptr(),
-        out.data_ptr(), block_tile.shape[0], n_tiles, tile_v, block_e,
-        n_windows, torch.cuda.current_stream(cand.device).cuda_stream)
+        _tile_starts(block_tile, n_tiles).data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), counter.data_ptr(), block_tile.shape[0],
+        n_tiles, tile_v, block_e, n_windows, wc,
+        torch.cuda.current_stream(cand.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
     segment_min_tiles.launches += 1
@@ -152,16 +195,19 @@ def temporal_relax_min_tiles(dst_local, arr_src, t_start, t_end, valid,
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected ({ep},)")
     ta, tb = int(window[0]), int(window[1])
     if _device_for(name, dst_local) == "cpu":
+        _check_ordered(name, block_tile)
         return temporal_relax_min_tiles_plain(
             dst_local, arr_src, t_start, t_end, valid, block_tile, (ta, tb),
             n_tiles, tile_v=tile_v, block_e=block_e, strict=strict)
-    out = torch.full((n_tiles, tile_v), INT_INF, dtype=torch.int32,
-                     device=dst_local.device)
+    out = torch.empty((n_tiles, tile_v), dtype=torch.int32, device=dst_local.device)
+    scratch, counter = _flush_buffers(1, 1, n_tiles, tile_v, dst_local.device)
     lib = build.library("temporal_edgemap")
     rc = lib.temporal_relax_min_tiles_launch(
         dst_local.data_ptr(), arr_src.data_ptr(), t_start.data_ptr(),
         t_end.data_ptr(), valid.data_ptr(), block_tile.data_ptr(),
-        out.data_ptr(), block_tile.shape[0], n_tiles, tile_v, block_e, ta, tb,
+        _tile_starts(block_tile, n_tiles).data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), counter.data_ptr(), block_tile.shape[0],
+        n_tiles, tile_v, block_e, ta, tb,
         int(bool(strict)), torch.cuda.current_stream(dst_local.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
@@ -179,4 +225,5 @@ __all__ = [
     "temporal_relax_min_tiles",
     "temporal_relax_min_tiles_plain",
     "relax_candidates",
+    "windows_per_cta",
 ]

@@ -41,12 +41,20 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [  # n_v, n_e, tile_v, block_e (as the JAX kernel sweep)
-    (100, 700, 64, 128),
-    (700, 6000, 256, 512),
-    (513, 2000, 128, 256),
-    (64, 64, 64, 128),
-    (50, 0, 64, 128),          # empty graph: one all-padding block
+SHAPES = [  # n_v, n_e, tile_v, block_e (as the JAX kernel sweep), destinations
+    (100, 700, 64, 128, "uniform"),
+    (700, 6000, 256, 512, "uniform"),
+    (513, 2000, 128, 256, "uniform"),
+    (64, 64, 64, 128, "uniform"),
+    (50, 0, 64, 128, "uniform"),          # empty graph: one all-padding block
+    # power-law destinations: a hub tile of ~300 blocks over five of K1's
+    # 8192-slot CTAs, empty tiles between the owned ones
+    (3000, 40000, 64, 128, "zipf"),
+    (20000, 60000, 512, 1024, "zipf"),    # the main path's tile shape
+    (40000, 30000, 4096, 2048, "zipf"),   # K1 fits 14 windows per CTA
+    # tile_v not a multiple of 4 (one-element stores); blocks straddle K1's
+    # CTAs and the slot count is odd (one-element loads)
+    (701, 30000, 100, 301, "uniform"),
 ]
 
 
@@ -57,9 +65,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _layout_inputs(n_v, n_e, tile_v, block_e, seed):
+def _layout_inputs(n_v, n_e, tile_v, block_e, seed, law="uniform"):
     rng = np.random.default_rng(seed)
-    dst = rng.integers(0, n_v, n_e)
+    dst = (rng.integers(0, n_v, n_e) if law == "uniform"
+           else np.minimum(rng.zipf(1.8, n_e) - 1, n_v - 1))
     lay = ops.prepare_layout(dst, n_v, tile_v=tile_v, block_e=block_e)
     perm = lay.perm.numpy()
     seg = np.append(dst, 0)[np.where(perm >= 0, perm, n_e)]  # padding -> 0
@@ -67,31 +76,40 @@ def _layout_inputs(n_v, n_e, tile_v, block_e, seed):
     return lay, lay.perm >= 0, dst_local, rng
 
 
-@pytest.mark.parametrize("n_v,n_e,tile_v,block_e", SHAPES)
-@pytest.mark.parametrize("n_windows", [0, 3, 32])
-def test_segment_min_tiles_kernel_matches_plain(cuda, n_v, n_e, tile_v, block_e,
-                                                n_windows):
-    lay, lane, dst_local, rng = _layout_inputs(n_v, n_e, tile_v, block_e, n_e)
+@pytest.mark.parametrize("n_v,n_e,tile_v,block_e,law", SHAPES)
+@pytest.mark.parametrize("n_windows", [0, 3, 31, 32, 33])   # 32 windows per CTA
+@pytest.mark.parametrize("cand_kind", ["mixed", "all_inf", "all_finite"])
+def test_segment_min_tiles_kernel_matches_plain(cuda, n_v, n_e, tile_v, block_e, law,
+                                                n_windows, cand_kind):
+    """Bit-identical to the plain version; "all_finite" is finite in every
+    lane, padding included, over the whole int32 range below INF."""
+    lay, lane, dst_local, rng = _layout_inputs(n_v, n_e, tile_v, block_e, n_e, law)
     shape = (n_windows, lay.n_edges_padded) if n_windows else (lay.n_edges_padded,)
-    cand = rng.integers(0, 1000, shape).astype(np.int32)
-    cand[..., rng.random(lay.n_edges_padded) < 0.3] = tem.INT_INF
-    cand = torch.where(lane, torch.as_tensor(cand), tem.INT_INF)
+    if cand_kind == "all_finite":
+        cand = torch.as_tensor(rng.integers(-2**31, tem.INT_INF, shape).astype(np.int32))
+    elif cand_kind == "all_inf":
+        cand = torch.full(shape, tem.INT_INF, dtype=torch.int32)
+    else:
+        cand = rng.integers(0, 1000, shape).astype(np.int32)
+        cand[..., rng.random(lay.n_edges_padded) < 0.3] = tem.INT_INF
+        cand = torch.where(lane, torch.as_tensor(cand), tem.INT_INF)
     want = tem.segment_min_tiles_plain(dst_local, cand, lay.block_tile,
                                        lay.n_tiles, tile_v=tile_v, block_e=block_e)
+    args = (dst_local.to(cuda), cand.to(cuda), lay.block_tile.to(cuda), lay.n_tiles)
     before = tem.segment_min_tiles.launches
-    got = tem.segment_min_tiles(dst_local.to(cuda), cand.to(cuda),
-                                lay.block_tile.to(cuda), lay.n_tiles,
-                                tile_v=tile_v, block_e=block_e)
+    got = tem.segment_min_tiles(*args, tile_v=tile_v, block_e=block_e)
+    again = tem.segment_min_tiles(*args, tile_v=tile_v, block_e=block_e)
     torch.cuda.synchronize()
-    assert tem.segment_min_tiles.launches == before + 1
+    assert tem.segment_min_tiles.launches == before + 2
     assert torch.equal(got.cpu(), want)
+    assert torch.equal(again.cpu(), want)   # the scratch and counters left at zero
 
 
-@pytest.mark.parametrize("n_v,n_e,tile_v,block_e", SHAPES)
+@pytest.mark.parametrize("n_v,n_e,tile_v,block_e,law", SHAPES)
 @pytest.mark.parametrize("strict", [False, True])
-def test_relax_min_tiles_kernel_matches_plain(cuda, n_v, n_e, tile_v, block_e,
+def test_relax_min_tiles_kernel_matches_plain(cuda, n_v, n_e, tile_v, block_e, law,
                                               strict):
-    lay, lane, dst_local, rng = _layout_inputs(n_v, n_e, tile_v, block_e, n_e + 1)
+    lay, lane, dst_local, rng = _layout_inputs(n_v, n_e, tile_v, block_e, n_e + 1, law)
     ep = lay.n_edges_padded
 
     def field(lo, hi):
@@ -149,12 +167,12 @@ def test_earliest_arrival_on_card_matches_cpu(cuda):
 
 # -- K3: segment_spmm_tiles (float atomics: held within rtol/atol 2e-4) -------
 
-@pytest.mark.parametrize("n_v,n_e,tile_v,block_e", SHAPES)
+@pytest.mark.parametrize("n_v,n_e,tile_v,block_e,law", SHAPES)
 @pytest.mark.parametrize("d", [1, 16, 130])
 @pytest.mark.parametrize("n_windows", [0, 1, 3])
-def test_segment_spmm_tiles_kernel_matches_plain(cuda, n_v, n_e, tile_v, block_e, d,
+def test_segment_spmm_tiles_kernel_matches_plain(cuda, n_v, n_e, tile_v, block_e, law, d,
                                                  n_windows):
-    lay, lane, dst_local, rng = _layout_inputs(n_v, n_e, tile_v, block_e, n_e + d)
+    lay, lane, dst_local, rng = _layout_inputs(n_v, n_e, tile_v, block_e, n_e + d, law)
     lead = (n_windows,) if n_windows else ()
     ep = lay.n_edges_padded
     msgs = torch.as_tensor(rng.standard_normal(lead + (ep, d)).astype(np.float32))

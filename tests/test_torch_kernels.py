@@ -126,6 +126,52 @@ def test_wrappers_check_inputs():
                                       tile_v=64, block_e=128)
 
 
+@pytest.mark.parametrize("kernel", ["segment_min_tiles", "temporal_relax_min_tiles"])
+def test_wrappers_reject_unordered_block_tile(kernel):
+    """The kernels finish a tile when its blocks end, so they need a tile's
+    blocks consecutive (block_tile nondecreasing, as the layout builds it);
+    the wrappers check it on the CPU.  The Pallas kernel, run in interpret
+    mode, takes any order."""
+    lay, x = _tile_inputs(700, 6000, 256, 512, 5)
+    bt = lay.block_tile.copy()
+    assert (np.diff(bt) >= 0).all() and bt[0] != bt[-1]
+    bt[[0, -1]] = bt[[-1, 0]]
+    d, c = _t(x["dst_local"]), _t(x["cand"])
+    with pytest.raises(ValueError, match="nondecreasing"):
+        if kernel == "segment_min_tiles":
+            ttem.segment_min_tiles(d, torch.stack([c, c]), _t(bt), lay.n_tiles,
+                                   tile_v=256, block_e=512)
+        else:
+            ttem.temporal_relax_min_tiles(d, _t(x["arr"]), _t(x["ts"]), _t(x["te"]),
+                                          _t(x["valid"]), _t(bt), (0, 1000),
+                                          lay.n_tiles, tile_v=256, block_e=512)
+
+
+@pytest.mark.parametrize("n_windows,tile_v,want", [
+    (1, 512, 1), (8, 512, 8), (32, 512, 32),   # one chunk up to 32 windows
+    (33, 512, 17), (65, 512, 22),              # then equal chunks
+    (32, 4096, 11), (3, 12288, 3), (5, 12288, 3),  # 224 KB holds 14 and 4 tiles
+])
+def test_windows_per_cta(n_windows, tile_v, want):
+    assert ttem.windows_per_cta(n_windows, tile_v) == want
+
+
+def test_tile_starts_mark_the_tiles_that_own_no_block():
+    """Each tile's first block, from the layout (one per layout, cached):
+    equal starts mark the tiles that own no block, which the tile-min
+    kernels store as INF themselves."""
+    ids = np.concatenate([np.arange(0, 64), np.arange(192, 256), np.arange(576, 640)])
+    dst = np.random.default_rng(0).choice(ids, 2500)       # tiles 0, 3 and 9 of 12
+    lay = tops.prepare_layout(dst, 768, tile_v=64, block_e=128)
+    starts = tops.tile_starts(lay.block_tile, lay.n_tiles)
+    assert starts is tops.tile_starts(lay.block_tile, lay.n_tiles)   # derived once
+    assert starts.dtype == torch.int32
+    np.testing.assert_array_equal(
+        as_np(starts), np.searchsorted(as_np(lay.block_tile), np.arange(13)))
+    owned = as_np(starts[1:] != starts[:-1])
+    np.testing.assert_array_equal(np.flatnonzero(owned), [0, 3, 9])
+
+
 def _tiled_plans(n_v=300, n_e=5000, seed=2, tile_v=128, block_e=256):
     jg = jpower(n_v, n_e, seed=seed)
     tg = tpower(n_v, n_e, seed=seed, device=CPU)

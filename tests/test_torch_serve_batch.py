@@ -238,6 +238,43 @@ def test_multi_tenant_soak(access):
     assert counts["fused"] > 4 * max(counts["cold"], 1), counts
 
 
+def test_multi_tenant_serving_on_tiled_scan(monkeypatch):
+    """The 16-query batch served on scan/``pallas_tiled`` (the tile-min
+    kernel's path), a cold start and three advances: counters equal to the
+    JAX engine's, integer rows bit-identical and floats within rtol 1e-5.
+    Its EA and BFS groups reach the tile-min wrapper with several windows
+    at once; on the CPU that is the kernel's plain version."""
+    import repro_torch.engine.backends as tb
+
+    jg, ji, g, idx, _, t_min, t_max = _case()
+    width = max((t_max - t_min) // 50, 4)
+    stride = max(width // 4, 1)
+    base = t_max - 30 * stride
+    windows_per_call = []
+    wrapped = tb.segment_min_tiles
+
+    def counting(dst_local, cand, *args, **kw):
+        windows_per_call.append(cand.shape[0] if cand.dim() == 2 else 1)
+        return wrapped(dst_local, cand, *args, **kw)
+
+    monkeypatch.setattr(tb, "segment_min_tiles", counting)
+    state = jstate = None
+    for step in range(4):
+        base += stride
+        batch = _sixteen_query_batch(te, base, width, stride)
+        results, state = serve_batch(g, batch, idx, state=state, access="scan",
+                                     backend="pallas_tiled")
+        jres, jstate = jws.serve_batch(jg, _sixteen_query_batch(je, base, width, stride),
+                                       ji, state=jstate, access="scan",
+                                       backend="pallas_tiled")
+        assert state.plan.backend == "pallas_tiled"
+        assert state.plan.cache_key == jstate.plan.cache_key
+        assert _counters(state) == _counters(jstate), step
+        assert state.last_advance == ("cold" if step == 0 else "reuse"), step
+        _assert_results_match(jres, results, batch, f"step {step}")
+    assert max(windows_per_call) > 1, windows_per_call
+
+
 def test_cross_tenant_row_reuse():
     _, _, g, idx, _, t_min, t_max = _case()
     width = max((t_max - t_min) // 40, 4)
