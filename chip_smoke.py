@@ -29,7 +29,20 @@
    eight advances, each ring against a cold build; profiles of one EA and
    one PageRank query and of one advance of each stream.  The kernels'
    launch counts are read around all of it.
-5. K4 (flash-decode attention) at phi4-mini-3.8b's decode shape (8 rows,
+5. The frontier ladder, its launch counts read around it: EA over the
+   transit and power-law wide windows from two sources, on scan/
+   pallas_tiled and index/xla_segment at ladder caps 0 (dense), 64 and
+   4096 (arrival and rounds bit-identical across the caps; warm ms, the
+   segment record and the K1 launches of each query); BFS, CC, k-core,
+   reachability and betweenness laddered against dense on the narrow
+   window; the serving batch with ``ladder=64`` beside the dense chain
+   (the cold start laddered, the advances dense, rows and dispatch tags
+   equal); an EA loop written with the TemporalEdgeMap primitives (equal
+   to ``earliest_arrival``, one K1 launch per round) and its
+   ``frontier_trace`` against a numpy oracle; profiles of one laddered and
+   one dense EA query on transit wide.  K1 must launch inside laddered
+   solves.
+6. K4 (flash-decode attention) at phi4-mini-3.8b's decode shape (8 rows,
    2048 positions, ragged lengths, GQA group 3, d_head 128) in bfloat16 and
    float32 against its plain version, timed beside it, beside
    scaled_dot_product_attention and beside its bytes bound: warm (one set of
@@ -38,7 +51,7 @@
    kernels of each source present in DIR (``temporal_edgemap.cu``,
    ``segment_spmm.cu``, ``decode_attention.cu``: the kernels before their
    redesign) are built and timed in turns with these (old, new, new, old).
-6. LM continuous batching at phi4-mini-3.8b's published widths (32 layers,
+7. LM continuous batching at phi4-mini-3.8b's published widths (32 layers,
    bfloat16, random weights from ``--seed``): a ServeEngine of 8 slots x
    2048 positions serves 16 seeded requests (prompts of 16-512 tokens,
    budgets up to 64, one of 1 and one of 0), with launch counts reset just
@@ -46,7 +59,9 @@
    of the engine's own decode steps and every served token are checked
    against ``forward``; prefill and decode times, tokens/s and a profile of
    one decode step are printed.
-7. Prints the kernel table as one JSON line, then the result line.
+8. Prints the kernel table as one JSON line (each kernel's launches on
+   the counted paths of items 4, 5 and 7, the ladder phase's also apart,
+   and K1's launches inside laddered solves), then the result line.
 
 Any mismatch raises, and the script exits non-zero.  It imports nothing
 of JAX or of the JAX package.
@@ -54,6 +69,7 @@ of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import subprocess
@@ -1075,17 +1091,14 @@ def _batch_rows_vs_cold(torch, np, name, g, tger, batch, results, plan, failures
                                          f"differs from the cold sweep")
 
 
-def serving_path(torch, np, name, g, tger, fields, failures):
-    """Multi-tenant serving (``serve_batch``) on a scan/pallas_tiled plan:
-    four tenants over SERVE_WINDOWS sliding windows (EA from 8 sources, the
-    same EA rows again, BFS from 4 sources, CC and PageRank), a cold start
-    and SERVE_ADVANCES advances, each checked against cold sweeps, with its
-    time, rows solved and K1/K3 launches; then one advance profiled."""
+def serving_stream(np, fields):
+    """The serving phases' tenant stream: ``batch_at(base)`` is the batch of
+    four tenants over SERVE_WINDOWS sliding windows ending at ``base`` (EA
+    from 8 sources, the same EA rows again, BFS from 4 sources, CC and
+    PageRank); returns it with the cold start's base and the stride."""
     from repro_torch.engine import QueryBatch, QuerySpec
-    from repro_torch.kernels import launch_counts
-    from repro_torch.serve import dispatch_log, serve_batch, sliding_windows
+    from repro_torch.serve import sliding_windows
 
-    sync = torch.cuda.synchronize
     src_np, _, ts_np, te_np = fields
     t_hi = int(te_np.max())
     width = (t_hi - int(ts_np.min())) // 50
@@ -1106,10 +1119,22 @@ def serving_path(torch, np, name, g, tger, fields, failures):
         specs += [QuerySpec.make("pagerank", w, n_iters=SERVE_PAGERANK_ITERS) for w in wins]
         return QueryBatch.make(specs)
 
+    return batch_at, t_hi - (SERVE_ADVANCES + 1) * stride, stride
+
+
+def serving_path(torch, np, name, g, tger, fields, failures):
+    """Multi-tenant serving (``serve_batch``) on a scan/pallas_tiled plan:
+    the ``serving_stream`` tenants, a cold start and SERVE_ADVANCES
+    advances, each checked against cold sweeps, with its time, rows solved
+    and K1/K3 launches; then one advance profiled."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve import dispatch_log, serve_batch
+
+    sync = torch.cuda.synchronize
+    batch_at, base, stride = serving_stream(np, fields)
     # rows that a one-stride slide adds: one new window per spec family
     new_rows = 2 * SERVE_EA_SOURCES + SERVE_BFS_SOURCES + 2
     new_unique = SERVE_EA_SOURCES + SERVE_BFS_SOURCES + 2
-    base = t_hi - (SERVE_ADVANCES + 1) * stride
     state, records = None, []
     for step in range(SERVE_ADVANCES + 1):
         batch = batch_at(base + step * stride)
@@ -1155,20 +1180,37 @@ def serving_path(torch, np, name, g, tger, fields, failures):
 
     prof = profile_query(torch, f"[{name}] serving advance (scan/pallas_tiled, "
                                 f"{new_unique} unique new rows)", one_more, warm=False)
-    steady_ms = float(np.mean([r["ms"] for r in records[1:]]))
-    records.append(idle_record(name, "serve_batch_profile", prof, steady_ms))
+    records.append(idle_record(np, name, "serve_batch_profile", prof,
+                               [r["ms"] for r in records[1:]]))
     return records
 
 
-def idle_record(name, algorithm, prof, steady_ms):
-    """The profiled advance's device time against the mean UNPROFILED
-    advance of the same phase (the profiler lengthens the advance it
-    records, so its own wall clock would overstate the idle share)."""
-    idle = 1 - prof["busy_us"] / (steady_ms * 1e3)
-    log(f"[{name}] {algorithm}: device busy {prof['busy_us']:.1f} us in the mean unprofiled "
-        f"advance's {steady_ms * 1e3:.1f} us: idle share {idle:.3f}")
-    return dict(graph=name, algorithm=algorithm, wall_us=prof["wall_us"],
-                busy_us=prof["busy_us"], ms_per_advance_mean=steady_ms, idle_share=idle)
+def idle_record(np, name, algorithm, prof, phase_ms, unit="advance"):
+    """The profiled ``unit`` (an advance, a query)'s device time against
+    the MEDIAN unprofiled one of the same phase (the profiler lengthens
+    the call it records, so its own wall clock would overstate the idle
+    share), with the phase's spread beside it.  Calls of one phase vary by
+    tens of percent, so a profiled call busier than the median one gives a
+    negative difference: that is reported as a measurement fault, never
+    as a share."""
+    lo, med, hi = (float(x) for x in np.percentile(phase_ms, [0, 50, 100]))
+    idle = 1 - prof["busy_us"] / (med * 1e3)
+    phase = (f"the phase's {len(phase_ms)} unprofiled {unit}s: min {lo:.3f} / "
+              f"median {med:.3f} / max {hi:.3f} ms")
+    rec = dict(graph=name, algorithm=algorithm, wall_us=prof["wall_us"],
+               busy_us=prof["busy_us"], **{f"ms_per_{unit}_median": med,
+                                           f"ms_per_{unit}_min": lo,
+                                           f"ms_per_{unit}_max": hi})
+    if idle < 0:
+        log(f"[{name}] {algorithm}: MEASUREMENT FAULT, no idle share: device busy "
+            f"{prof['busy_us']:.1f} us exceeds the median {unit}'s {med * 1e3:.1f} us "
+            f"({phase})")
+        rec["idle_fault"] = idle
+        return rec
+    log(f"[{name}] {algorithm}: device busy {prof['busy_us']:.1f} us in the median "
+        f"unprofiled {unit}'s {med * 1e3:.1f} us: idle share {idle:.3f} ({phase})")
+    rec["idle_share"] = idle
+    return rec
 
 
 def ring_stream(torch, np, name, g, tger, fields, access):
@@ -1243,10 +1285,409 @@ def ring_stream(torch, np, name, g, tger, fields, access):
                                state=carry[0], access=access)[1]
 
     prof = profile_query(torch, f"[{name}] {access} ring advance", one_more, warm=False)
-    records.append(idle_record(name, f"{access}_ring_profile", prof,
-                               float(np.mean([r["ms"] for r in records]))))
+    records.append(idle_record(np, name, f"{access}_ring_profile", prof,
+                               [r["ms"] for r in records]))
     records[-1]["fused"] = fused
     return records
+
+
+# the frontier ladder phase: EA at these caps (0 = dense) in these plan
+# cells, the other fixpoints and serving at LADDER_CAP
+LADDER_CAPS = (0, 64, 4096)
+LADDER_CELLS = (("scan", "pallas_tiled"), ("index", "xla_segment"))
+LADDER_CAP = 64
+# warm calls per cap, the caps in alternating order (forward, backward, ...):
+# the host clock spreads by tens of percent between calls
+LADDER_REPS = 7
+
+
+def alternating(keys, reps):
+    """``keys`` forward, then backward, ``reps`` times: each key's calls
+    spread evenly over the phase."""
+    keys = list(keys)
+    for rep in range(reps):
+        yield from (keys if rep % 2 == 0 else keys[::-1])
+
+
+def spread(np, ms) -> dict:
+    """Median, min, max and every one of a phase's host-clock times."""
+    lo, med, hi = (float(x) for x in np.percentile(ms, [0, 50, 100]))
+    return dict(ms=med, ms_min=lo, ms_max=hi, ms_all=list(ms))
+
+
+@contextlib.contextmanager
+def ladder_spy(tem):
+    """Record every laddered solve made through the algorithms' public
+    entry points: its ``segments`` record and the K1 launches inside it."""
+    from unittest import mock
+
+    from repro_torch.core.algorithms import bfs, connectivity, kcore, paths, reachability
+    from repro_torch.engine import frontier
+
+    solves = []
+
+    def spy(*args, segments=None, **kw):
+        segs = [] if segments is None else segments
+        before = tem.segment_min_tiles.launches
+        out = frontier.run_laddered(*args, segments=segs, **kw)
+        solves.append(dict(segments=segs, k1=tem.segment_min_tiles.launches - before))
+        return out
+
+    with contextlib.ExitStack() as stack:
+        for mod in (paths, bfs, connectivity, kcore, reachability):
+            stack.enter_context(mock.patch.object(mod, "run_laddered", spy))
+        yield solves
+
+
+def segment_summary(segs) -> dict:
+    """Counts and rounds of the dense and sparse segments, and the rungs."""
+    out = {}
+    for kind in ("dense", "sparse"):
+        mine = [x for x in segs if x[0] == kind]
+        out[f"{kind}_segments"] = len(mine)
+        out[f"{kind}_rounds"] = sum(x[3] for x in mine)
+    out["rungs"] = [[v, e, n] for kind, v, e, n in segs if kind == "sparse"]
+    return out
+
+
+def ea_trace_oracle(np, src, dst, ts, te, n_v, source, window):
+    """The label-correcting EA's per-round occupancy in numpy: vertices
+    that receive at least one valid contribution in each round."""
+    ta, tb = window
+    ok = (ts >= ta) & (te <= tb)
+    s, d, s_ts, s_te = src[ok], dst[ok], ts[ok], te[ok]
+    arr = np.full(n_v, INF, np.int64)
+    arr[source] = ta
+    frontier = np.zeros(n_v, bool)
+    frontier[source] = True
+    trace = []
+    while frontier.any():
+        e = frontier[s] & (arr[s] <= s_ts)
+        touched = np.zeros(n_v, bool)
+        touched[d[e]] = True
+        trace.append(int(touched.sum()))
+        new = arr.copy()
+        np.minimum.at(new, d[e], s_te[e])
+        frontier = new < arr
+        arr = new
+    return trace
+
+
+def ladder_ea(torch, np, name, g, tger, window, sources, solves, tem):
+    """EA over the wide window's view from each source, in each LADDER_CELLS
+    plan at each LADDER_CAPS cap: arrival and rounds bit-identical across
+    the caps and the calls; the first call's ms (it builds the companion),
+    then LADDER_REPS warm calls per cap in alternating cap order (median,
+    min, max), the segment record and the K1 launches of each query."""
+    from repro_torch.core import plan_query
+    from repro_torch.core.algorithms import earliest_arrival_over_view
+    from repro_torch.core.edgemap import view_for_plan
+
+    sync = torch.cuda.synchronize
+    wins = np.asarray([window], np.int32)
+    records = []
+    for access, backend in LADDER_CELLS:
+        plans = {cap: plan_query(g, tger, window, access=access, backend=backend,
+                                 ladder=cap) for cap in LADDER_CAPS}
+        edges = view_for_plan(g, tger, window, plans[0])   # one view for every cap
+        for s in sources:
+            def run(plan):
+                return earliest_arrival_over_view(edges, wins, plan=plan,
+                                                  n_vertices=g.n_vertices,
+                                                  sources=[s], with_rounds=True)
+
+            first_ms, ms, k1, segs, ref = {}, {cap: [] for cap in plans}, {}, {}, None
+            for cap, plan in plans.items():
+                sync()
+                t0 = time.perf_counter()
+                run(plan)
+                sync()
+                first_ms[cap] = (time.perf_counter() - t0) * 1e3
+            for cap in alternating(plans, LADDER_REPS):
+                n_solves, k1_before = len(solves), tem.segment_min_tiles.launches
+                sync()
+                t0 = time.perf_counter()
+                arr, rounds = run(plans[cap])
+                sync()
+                ms[cap].append((time.perf_counter() - t0) * 1e3)
+                k1[cap] = tem.segment_min_tiles.launches - k1_before
+                if cap and len(solves) != n_solves + 1:
+                    raise AssertionError(f"[{name}] EA ladder {cap}: no laddered solve")
+                segs[cap] = solves[-1]["segments"] if cap else []
+                if ref is None:
+                    ref = (arr, rounds)
+                elif not (torch.equal(arr, ref[0]) and rounds == ref[1]):
+                    raise AssertionError(f"[{name}] wide src={s} {access}/{backend}: EA "
+                                         f"at ladder {cap} differs from the dense solve")
+            line = []
+            for cap in plans:
+                summ, t = segment_summary(segs[cap]), spread(np, ms[cap])
+                records.append(dict(graph=name, algorithm="ea_ladder", window="wide",
+                                    source=s, cell=f"{access}/{backend}", ladder=cap,
+                                    first_ms=first_ms[cap], rounds=ref[1],
+                                    k1_launches=k1[cap],
+                                    segments=[list(x) for x in segs[cap]], **t, **summ))
+                line.append(f"L{cap} median {t['ms']:.3f} ms (min {t['ms_min']:.3f}, max "
+                            f"{t['ms_max']:.3f}, first {first_ms[cap]:.3f}), K1 {k1[cap]}"
+                            + (f", dense {summ['dense_segments']} seg / "
+                               f"{summ['dense_rounds']} rounds, sparse "
+                               f"{summ['sparse_segments']} seg / {summ['sparse_rounds']} "
+                               f"rounds, rungs (v, e, rounds) {summ['rungs']}" if cap else ""))
+            log(f"[{name}] ladder EA wide {window} src={s} {access}/{backend}: "
+                f"{ref[1]} rounds, {int((ref[0] < INF).sum())} reached, bit-identical "
+                f"across caps and calls; {LADDER_REPS} warm calls per cap in turns; "
+                + "; ".join(line))
+    return records
+
+
+def ladder_fixpoints(torch, np, name, g, tger, window, sources, solves, tem):
+    """BFS, CC, k-core, overlaps reachability and betweenness over the
+    narrow window's scan view on pallas_tiled, laddered (LADDER_CAP)
+    against dense: integer outputs bit-identical; betweenness's float
+    dependencies (the Brandes passes sum with float atomics on the card,
+    in no fixed order) within 1e-5 of the largest, its bit-identity
+    reported."""
+    from repro_torch.core import plan_query
+    from repro_torch.core.algorithms import (
+        overlaps_reachability_over_view,
+        temporal_betweenness_over_view,
+        temporal_bfs_over_view,
+        temporal_cc_over_view,
+        temporal_kcore_over_view,
+    )
+    from repro_torch.core.edgemap import view_for_plan
+
+    sync = torch.cuda.synchronize
+    plans = {cap: plan_query(g, tger, window, access="scan", backend="pallas_tiled",
+                             ladder=cap) for cap in (0, LADDER_CAP)}
+    edges = view_for_plan(g, tger, window, plans[0])
+    V = g.n_vertices
+    srcs = sources[:2]
+    bc = sources[:BETWEENNESS_SOURCES]
+    one = np.asarray([window], np.int32)
+
+    def rows(k):
+        return np.repeat(one, k, axis=0)
+
+    runs = {
+        "bfs": lambda p: temporal_bfs_over_view(edges, rows(len(srcs)), plan=p,
+                                                n_vertices=V, sources=srcs),
+        "cc": lambda p: temporal_cc_over_view(edges, one, plan=p, n_vertices=V),
+        "kcore": lambda p: temporal_kcore_over_view(edges, one, plan=p, n_vertices=V,
+                                                    k=KCORE_K),
+        "reachability": lambda p: overlaps_reachability_over_view(
+            edges, rows(len(srcs)), plan=p, n_vertices=V, sources=srcs),
+        "betweenness": lambda p: temporal_betweenness_over_view(
+            edges, rows(len(bc)), plan=p, n_vertices=V, sources=bc),
+    }
+    records = []
+    for alg, run in runs.items():
+        out, ms, k1, segs = {}, {cap: [] for cap in plans}, {}, []
+        for plan in plans.values():
+            run(plan)    # warm-up: companions
+        for cap in alternating(plans, LADDER_REPS):
+            n_solves, k1_before = len(solves), tem.segment_min_tiles.launches
+            sync()
+            t0 = time.perf_counter()
+            res = run(plans[cap])
+            sync()
+            ms[cap].append((time.perf_counter() - t0) * 1e3)
+            k1[cap] = tem.segment_min_tiles.launches - k1_before
+            out[cap] = res if isinstance(res, tuple) else (res,)
+            if cap:
+                if len(solves) != n_solves + 1:
+                    raise AssertionError(f"[{name}] {alg} ladder: no laddered solve")
+                segs = solves[-1]["segments"]
+        same = all(torch.equal(a, b) for a, b in zip(out[0], out[LADDER_CAP]))
+        if alg == "betweenness":
+            a, b = out[0][0].double(), out[LADDER_CAP][0].double()
+            scale = max(float(a.abs().max()), 1.0)
+            diff = float((a - b).abs().max())
+            if not (bool(torch.isfinite(b).all()) and diff <= 1e-5 * scale):
+                raise AssertionError(f"[{name}] betweenness laddered off dense: {diff}")
+            note = ("bit-identical" if same else
+                    f"within 1e-5 of max (max |diff| {diff:.3g}; not bit-identical)")
+        elif not same:
+            raise AssertionError(f"[{name}] {alg} laddered differs from dense")
+        else:
+            note = "bit-identical"
+        summ = segment_summary(segs)
+        t = {cap: spread(np, v) for cap, v in ms.items()}
+        log(f"[{name}] ladder {alg} narrow {window} scan/pallas_tiled, median (min-max) "
+            f"of {LADDER_REPS} warm calls each, in turns: dense {t[0]['ms']:.3f} "
+            f"({t[0]['ms_min']:.3f}-{t[0]['ms_max']:.3f}) ms (K1 {k1[0]}), L{LADDER_CAP} "
+            f"{t[LADDER_CAP]['ms']:.3f} ({t[LADDER_CAP]['ms_min']:.3f}-"
+            f"{t[LADDER_CAP]['ms_max']:.3f}) ms (K1 {k1[LADDER_CAP]}; {summ}); {note}")
+        records.append(dict(graph=name, algorithm=f"{alg}_ladder", window="narrow",
+                            ms={str(c): v for c, v in t.items()},
+                            k1_launches={str(c): n for c, n in k1.items()},
+                            bit_identical=same, **summ))
+    return records
+
+
+def ladder_serving(torch, np, name, g, tger, fields, solves, failures):
+    """The ``serving_stream`` batch served twice side by side, dense and
+    with ``ladder=LADDER_CAP``: a cold start (its fixpoint groups laddered)
+    and SERVE_ADVANCES advances (dense: no laddered solve); every integer
+    row equal to the dense chain's, PageRank rows (K3 sums with atomics in
+    no fixed order) within the PageRank phase's tolerance, the dispatch
+    tags equal."""
+    from repro_torch.device import to_numpy
+    from repro_torch.serve import dispatch_log, serve_batch
+
+    sync = torch.cuda.synchronize
+    batch_at, base, stride = serving_stream(np, fields)
+    st = {0: None, LADDER_CAP: None}
+    records = []
+    for step in range(SERVE_ADVANCES + 1):
+        batch = batch_at(base + step * stride)
+        res, tags, ms, laddered = {}, {}, {}, {}
+        for cap in st:
+            n_solves = len(solves)
+            sync()
+            t0 = time.perf_counter()
+            with dispatch_log() as tags[cap]:
+                res[cap], st[cap] = serve_batch(g, batch, tger, state=st[cap],
+                                                access="scan", backend="pallas_tiled",
+                                                ladder=cap)
+            sync()
+            ms[cap] = (time.perf_counter() - t0) * 1e3
+            laddered[cap] = solves[n_solves:]
+        if tags[0] != tags[LADDER_CAP]:
+            raise AssertionError(f"[{name}] ladder serving {step}: tags {tags[LADDER_CAP]} "
+                                 f"!= dense {tags[0]}")
+        n_lad = len(laddered[LADDER_CAP])
+        # the cold start ladders its EA, BFS and CC groups; advances none
+        if laddered[0] or n_lad != (3 if step == 0 else 0):
+            raise AssertionError(f"[{name}] ladder serving {step}: {n_lad} laddered solves")
+        for gi, ((alg, _), _) in enumerate(batch.groups().items()):
+            a, b = res[0][gi], res[LADDER_CAP][gi]
+            if alg == "pagerank":
+                for qi in range(a.shape[0]):
+                    check_pagerank(np, f"[{name}] ladder serving {step} pagerank row {qi}",
+                                   to_numpy(b[qi]), to_numpy(a[qi]).astype(np.float64),
+                                   failures)
+            elif not _bit_equal(torch, a, b):
+                raise AssertionError(f"[{name}] ladder serving {step}: {alg} rows differ")
+        k1 = sum(x["k1"] for x in laddered[LADDER_CAP])
+        summ = [segment_summary(x["segments"]) for x in laddered[LADDER_CAP]]
+        log(f"[{name}] ladder serving {st[LADDER_CAP].last_advance} {step}: dense "
+            f"{ms[0]:.3f} ms, L{LADDER_CAP} {ms[LADDER_CAP]:.3f} ms; tags {tags[0]}; "
+            f"{n_lad} laddered solves (K1 {k1} inside; {summ}); rows equal")
+        records.append(dict(graph=name, algorithm="serve_batch_ladder", step=step,
+                            advance=st[LADDER_CAP].last_advance,
+                            ms={str(c): t for c, t in ms.items()}, laddered_solves=n_lad,
+                            laddered_k1=k1, segments=summ))
+    return records
+
+
+def _bit_equal(torch, a, b):
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def ladder_primitives(torch, np, name, g, tger, fields, window, source, tem):
+    """An EA loop written with the TemporalEdgeMap primitives alone
+    (temporal_edge_map, vertex_map, frontier_nonempty) on scan/pallas_tiled:
+    equal to ``earliest_arrival`` bit for bit, one K1 launch per round; and
+    ``frontier_trace`` of the same query equal to the numpy oracle's."""
+    from repro_torch.core import plan_query, temporal_edge_map, vertex_map
+    from repro_torch.core.algorithms import earliest_arrival
+    from repro_torch.core.edgemap import frontier_from_sources, frontier_nonempty
+    from repro_torch.core.predicates import OrderingPredicateType, edge_follows
+
+    sync = torch.cuda.synchronize
+    plan = plan_query(g, tger, window, access="scan", backend="pallas_tiled")
+    V = g.n_vertices
+
+    def relax(edges, arr_src):
+        return edges.t_end, edge_follows(OrderingPredicateType.SUCCEEDS, arr_src,
+                                         edges.t_start, edges.t_end)
+
+    k1_before = tem.segment_min_tiles.launches
+    sync()
+    t0 = time.perf_counter()
+    arrival = torch.full((V,), INF, dtype=torch.int32, device=g.device)
+    arrival[source] = window[0]
+    frontier = frontier_from_sources(V, [source], device=g.device)
+    rounds = 0
+    while bool(frontier_nonempty(frontier)):
+        cand, _ = temporal_edge_map(g, window, frontier, arrival, relax, "min",
+                                    tger=tger, plan=plan, compute_touched=False)
+        new = torch.minimum(arrival, cand)
+        frontier = vertex_map(new < arrival, lambda v: v < V)
+        arrival = new
+        rounds += 1
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    k1 = tem.segment_min_tiles.launches - k1_before
+    want, metrics = earliest_arrival(g, source, window, tger, plan=plan, with_metrics=True,
+                                     frontier_trace=True)
+    if not torch.equal(arrival, want) or rounds != metrics.rounds or k1 != rounds:
+        raise AssertionError(f"[{name}] primitives EA: rounds {rounds} / "
+                             f"{metrics.rounds}, K1 {k1}, equal {torch.equal(arrival, want)}")
+    trace = metrics.frontier_trace.numpy()
+    oracle = ea_trace_oracle(np, *(f.astype(np.int64) for f in fields), V, source, window)
+    if not ((trace[:len(oracle)] == np.asarray(oracle)).all() and len(oracle) == rounds
+            and (trace[len(oracle):] == -1).all()):
+        raise AssertionError(f"[{name}] frontier_trace differs from the numpy oracle")
+    log(f"[{name}] primitives EA loop wide {window} src={source} scan/pallas_tiled: "
+        f"{ms:.3f} ms, {rounds} rounds, K1 {k1} launches; equal to earliest_arrival. "
+        f"frontier_trace equal to the numpy oracle: peak {max(oracle)} vertices, last "
+        f"rounds {oracle[-5:]}")
+    return [dict(graph=name, algorithm="primitives_ea", window="wide", source=source,
+                 ms=ms, rounds=rounds, k1_launches=k1, frontier_trace_peak=max(oracle),
+                 frontier_trace=oracle)]
+
+
+def ladder_path(torch, np, graphs, contexts, failures, tem):
+    """The frontier ladder at wiki-talk size: EA on both wide windows, the
+    other fixpoints on the narrow one, serving, the primitives loop and
+    frontier_trace, and profiles of one laddered and one dense EA query on
+    transit wide.  Returns (records, K1 launches inside laddered solves)."""
+    from repro_torch.core import plan_query
+    from repro_torch.core.algorithms import earliest_arrival_over_view
+    from repro_torch.core.edgemap import view_for_plan
+
+    records = []
+    with ladder_spy(tem) as solves:
+        for name in ("transit", "power_law"):
+            g = graphs[name]
+            tger, fields, windows, sources = contexts[name]
+            records += ladder_ea(torch, np, name, g, tger, windows["wide"], sources[:2],
+                                 solves, tem)
+            records += ladder_fixpoints(torch, np, name, g, tger, windows["narrow"],
+                                        sources, solves, tem)
+        g = graphs["transit"]
+        tger, fields, windows, sources = contexts["transit"]
+        records += ladder_primitives(torch, np, "transit", g, tger, fields,
+                                     windows["wide"], sources[0], tem)
+        records += ladder_serving(torch, np, "power_law", graphs["power_law"],
+                                  contexts["power_law"][0], contexts["power_law"][1],
+                                  solves, failures)
+        laddered_k1 = sum(x["k1"] for x in solves)
+        wins = np.asarray([windows["wide"]], np.int32)
+        for cap in (LADDER_CAP, 0):
+            plan = plan_query(g, tger, windows["wide"], access="scan",
+                              backend="pallas_tiled", ladder=cap)
+            edges = view_for_plan(g, tger, windows["wide"], plan)
+            prof = profile_query(
+                torch, f"[transit] EA wide src={sources[0]} scan/pallas_tiled ladder {cap}",
+                lambda: earliest_arrival_over_view(edges, wins, plan=plan,
+                                                   n_vertices=g.n_vertices,
+                                                   sources=[sources[0]]))
+            unprofiled = next(r["ms_all"] for r in records
+                              if r["algorithm"] == "ea_ladder" and r["graph"] == "transit"
+                              and r["source"] == sources[0] and r["ladder"] == cap
+                              and r["cell"] == "scan/pallas_tiled")
+            rec = idle_record(np, "transit", f"EA wide ladder {cap} profile", prof,
+                              unprofiled, unit="query")
+            records.append(dict(rec, algorithm="ea_ladder_profile", ladder=cap))
+    if laddered_k1 <= 0:
+        raise AssertionError("K1 was never launched inside a laddered solve")
+    log(f"ladder phase: {len(solves)} laddered solves, K1 {laddered_k1} launches inside them")
+    return records, laddered_k1
 
 
 def graph_context(torch, np, name, g):
@@ -1947,6 +2388,14 @@ def main(argv=None) -> int:
         records += ring_stream(torch, np, name, graphs[name], tger, fields, access)
     counts = launch_counts()
     log(f"graph paths launches: {counts}")
+    # -- the frontier ladder, counted on its own ------------------------------
+    reset_launch_counts()
+    ladder_records, laddered_k1 = ladder_path(torch, np, graphs, contexts, failures, tem)
+    ladder_counts = launch_counts()
+    log(f"ladder phase launches: {ladder_counts}")
+    if ladder_counts["segment_min_tiles"] <= 0:
+        raise AssertionError("K1 was never launched in the ladder phase")
+    records += ladder_records
     if failures:
         raise AssertionError(f"{len(failures)} checks failed:\n" + "\n".join(failures))
 
@@ -1977,7 +2426,10 @@ def main(argv=None) -> int:
         f"decode_attention_kernel<{t}, {v}, {G}>") for t, v in (("bf16", 8), ("f32", 4))
         for G in (cfg.n_heads // cfg.n_kv_heads,)}
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["ladder_launches"] = ladder_counts[row["name"]]
+        row["launches"] = counts[row["name"]] + row["ladder_launches"]
+        if row["name"] == "segment_min_tiles":
+            row["launches_in_laddered_solves"] = laddered_k1
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was never launched on its path")
     for rec in records:

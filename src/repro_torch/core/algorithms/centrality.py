@@ -21,12 +21,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.algorithms.paths import bucket_bounds, earliest_arrival_over_view
+from repro_torch.core.algorithms.paths import _earliest_arrival_over_view, bucket_bounds
 from repro_torch.core.edgemap import INT_INF, EdgeView, ensure_plan, union_window, view_for_plan
 from repro_torch.core.predicates import OrderingPredicateType, edge_follows
 from repro_torch.core.temporal_graph import TemporalGraph
 from repro_torch.core.tger import TGERIndex
 from repro_torch.engine.fixpoint import FixpointRunner
+from repro_torch.engine.frontier import ladder_eligible
 from repro_torch.engine.plan import AccessPlan
 
 
@@ -102,9 +103,23 @@ def temporal_betweenness_over_view(
     """delta[q, v] = dependency of v on sources[q] within windows[q], over a
     prebuilt (union-covering) view.  Summing rows that share a window gives
     classic BC (``temporal_betweenness``).  ``init`` must be None: the
-    dependencies are a two-pass accumulation with no sound warm start.  The
-    frontier ladder is not in the port, so the EA upsweep is the dense
-    fixpoint."""
+    dependencies are a two-pass accumulation with no sound warm start.
+    Under a plan with ``ladder > 0`` the EA upsweep runs through the
+    frontier-rung ladder (bit-identical labels), and the Brandes passes
+    are unchanged."""
+    return _temporal_betweenness_over_view(
+        edges, windows, plan=plan, n_vertices=n_vertices, sources=sources, pred=pred,
+        max_rounds=max_rounds, n_buckets=n_buckets, init=init,
+        ladder=ladder_eligible(plan))
+
+
+def _temporal_betweenness_over_view(edges, windows, *, plan, n_vertices, sources=None,
+                                    pred=OrderingPredicateType.STRICTLY_SUCCEEDS,
+                                    max_rounds=0, n_buckets=64, init=None,
+                                    ladder=False):
+    """``ladder=False`` is the dense path of the callers the JAX package
+    traces (``temporal_betweenness_batched``, ``sweep``, a serving
+    advance)."""
     if init is not None:
         raise ValueError(
             "temporal_betweenness_over_view does not accept a warm init: "
@@ -114,9 +129,9 @@ def temporal_betweenness_over_view(
                                      max_rounds=max_rounds)
     if runner.sources is None:
         raise ValueError("temporal_betweenness_over_view needs sources=")
-    t = earliest_arrival_over_view(edges, runner.windows, sources=runner.sources,
-                                   plan=plan, n_vertices=n_vertices, pred=pred,
-                                   max_rounds=max_rounds)              # [Q, V]
+    t = _earliest_arrival_over_view(edges, runner.windows, sources=runner.sources,
+                                    plan=plan, n_vertices=n_vertices, pred=pred,
+                                    max_rounds=max_rounds, ladder=ladder)   # [Q, V]
     return _brandes_rows(edges, runner.valid, runner.windows, runner.sources, t,
                          n_buckets, pred, n_vertices)
 
@@ -160,7 +175,7 @@ def temporal_betweenness_batched(
     a single union-window view."""
     plan = ensure_plan(plan)
     edges = view_for_plan(g, tger, union_window(windows), plan)
-    return temporal_betweenness_over_view(
+    return _temporal_betweenness_over_view(
         edges, windows, sources=source, plan=plan, n_vertices=g.n_vertices,
         pred=pred, max_rounds=max_rounds, n_buckets=n_buckets)
 

@@ -58,8 +58,10 @@ def temporal_pagerank_over_view(
     must be None.  ``init`` warm-starts the iteration; the finite-iteration
     result then differs from a cold start's by the residual.
 
-    The frontier ladder is not in the port; like the JAX package's, the
-    iteration is the dense program (every vertex is live every round)."""
+    The frontier ladder is a no-op here, as in the JAX package: every
+    vertex is live every iteration (no frontier to shrink), and a sparse
+    float sum would reassociate the reduction, so a plan with ``ladder >
+    0`` runs this same dense iteration."""
     if sources is not None:
         raise ValueError("temporal_pagerank is source-free: pass sources=None")
     runner = FixpointRunner.for_view(edges, windows=windows, plan=plan,

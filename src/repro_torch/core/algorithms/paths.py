@@ -7,6 +7,7 @@ changed-mask.  The edge view is gathered once per query, before the loop.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -25,6 +26,15 @@ from repro_torch.core.temporal_graph import TemporalGraph
 from repro_torch.core.tger import TGERIndex, vertex_range
 from repro_torch.engine.backends import segment_combine
 from repro_torch.engine.fixpoint import FixpointRunner
+from repro_torch.engine.frontier import (
+    LadderSpec,
+    companion_for_view,
+    ladder_eligible,
+    rowwise_combine,
+    run_laddered,
+    sparse_window_valid,
+    take_rows,
+)
 from repro_torch.engine.plan import AccessPlan
 
 INT_NEG_INF = -(2**31)
@@ -88,6 +98,7 @@ def earliest_arrival(
     max_rounds: int = 0,
     visit_once: bool = False,
     with_metrics: bool = False,
+    frontier_trace: bool = False,
 ):
     """t[v] = earliest arrival time from ``source`` (a vertex, or a list of
     seed vertices) to v within [ta, tb]; INT_INF where unreachable.
@@ -95,7 +106,10 @@ def earliest_arrival(
     ``visit_once=True`` reproduces Alg. 2's CAS(Visited) literally; the
     default label-correcting variant makes every improved vertex the next
     frontier.  ``with_metrics=True`` returns ``(arrival, FixpointMetrics)``
-    at the cost of one extra segment-sum per round.
+    at the cost of one extra segment-sum per round; ``frontier_trace=True``
+    (with metrics) also fills ``FixpointMetrics.frontier_trace`` with the
+    per-round occupancy.  A single-window dense fixpoint, as the JAX
+    package's (jitted) one: the ladder runs in ``*_over_view`` calls.
     """
     runner = FixpointRunner.for_query(g, tger, window, plan=ensure_plan(plan),
                                       max_rounds=max_rounds)
@@ -107,7 +121,8 @@ def earliest_arrival(
     init = (arrival0, frontier0, frontier0)
     if with_metrics:
         (arrival, _, _), metrics = runner.run_with_metrics(
-            _frontier_nonempty, lambda state, rnd: body(state), init)
+            _frontier_nonempty, lambda state, rnd: body(state), init,
+            frontier_trace=frontier_trace)
         return arrival, metrics
     arrival, _, _ = runner.run(_frontier_nonempty,
                                lambda state, rnd: body(state)[0], init)
@@ -117,15 +132,39 @@ def earliest_arrival(
 def earliest_arrival_multi(g, sources, window, tger=None, **kw):
     """Multi-source EA: one row per source, [S, V].  The JAX package vmaps
     ``earliest_arrival`` over the sources; here the sources are the batch
-    axis of one batched run over the same window."""
+    axis of one dense batched run over the same window."""
     sources = torch.as_tensor(sources).reshape(-1)
     windows = np.tile(np.asarray([[int(window[0]), int(window[1])]], np.int32),
                       (sources.shape[0], 1))
     plan = ensure_plan(kw.pop("plan", None))
     edges = view_for_plan(g, tger, window, plan)
-    return earliest_arrival_over_view(edges, windows, plan=plan,
-                                      n_vertices=g.n_vertices, sources=sources,
-                                      **kw)
+    return _earliest_arrival_over_view(edges, windows, plan=plan,
+                                       n_vertices=g.n_vertices, sources=sources, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _ea_ladder_spec(pred: OrderingPredicateType) -> LadderSpec:
+    """EA's ladder contract: state ``(arrival, frontier)``, the
+    label-correcting variant only (``visit_once`` stays dense)."""
+    relax = _ea_relax(pred)
+
+    def dense_round(runner, state, rnd):
+        arrival, frontier = state
+        cand, _ = runner.step(frontier, arrival, relax, "min")
+        new_arrival = torch.minimum(arrival, cand)
+        return new_arrival, new_arrival < arrival
+
+    def sparse_round(runner, gathered, state, rnd):
+        arrival, _ = state
+        edges = runner.edges
+        (slots, cov), = gathered
+        ok, ts, te = sparse_window_valid(edges, runner.windows, slots, cov)
+        ok &= edge_follows(pred, take_rows(arrival, edges.src[slots]), ts, te)
+        out = rowwise_combine(te, edges.dst[slots], runner.n_vertices, "min", ok)
+        new_arrival = torch.minimum(arrival, out)
+        return new_arrival, new_arrival < arrival
+
+    return LadderSpec("ea", dense_round, sparse_round, lambda s: s[1])
 
 
 def earliest_arrival_over_view(
@@ -144,7 +183,24 @@ def earliest_arrival_over_view(
     """The batched EA fixpoint over a prebuilt (union-covering) view: row q
     solves ``(sources[q], windows[q])``; a scalar source broadcasts.
     ``init`` warm-starts with [Q, V] labels (frontier = the finite labels);
-    ``with_rounds=True`` returns ``(arrival, rounds)``."""
+    ``with_rounds=True`` returns ``(arrival, rounds)``.
+
+    Under a plan with ``ladder > 0`` the label-correcting variant runs the
+    frontier-rung ladder (``engine/frontier.py``): bit-identical labels and
+    round count, sparse tail rounds proportional to the live frontier.
+    ``visit_once`` stays dense."""
+    return _earliest_arrival_over_view(
+        edges, windows, plan=plan, n_vertices=n_vertices, sources=sources,
+        pred=pred, max_rounds=max_rounds, visit_once=visit_once, init=init,
+        with_rounds=with_rounds, ladder=ladder_eligible(plan))
+
+
+def _earliest_arrival_over_view(edges, windows, *, plan, n_vertices, sources=None,
+                                pred=OrderingPredicateType.SUCCEEDS, max_rounds=0,
+                                visit_once=False, init=None, with_rounds=False,
+                                ladder=False):
+    """``ladder=False`` is the dense path of the callers the JAX package
+    traces (the batched entry points, ``sweep``, a serving advance)."""
     runner = FixpointRunner.for_view(edges, windows=windows, sources=sources,
                                      plan=plan, n_vertices=n_vertices,
                                      max_rounds=max_rounds)
@@ -154,10 +210,15 @@ def earliest_arrival_over_view(
     else:
         arrival0 = torch.as_tensor(init, dtype=torch.int32, device=runner.device)
         frontier0 = arrival0 < INT_INF
-    body = _ea_round(runner, _ea_relax(pred), visit_once)
-    (arrival, _, _), rounds = runner.run(
-        _frontier_nonempty, lambda state, rnd: body(state)[0],
-        (arrival0, frontier0, frontier0), with_rounds=True)
+    if ladder and not visit_once:
+        (arrival, _), rounds = run_laddered(
+            _ea_ladder_spec(pred), runner, (arrival0, frontier0),
+            companions=(companion_for_view(edges.src, n_vertices),))
+    else:
+        body = _ea_round(runner, _ea_relax(pred), visit_once)
+        (arrival, _, _), rounds = runner.run(
+            _frontier_nonempty, lambda state, rnd: body(state)[0],
+            (arrival0, frontier0, frontier0), with_rounds=True)
     return (arrival, rounds) if with_rounds else arrival
 
 
@@ -184,7 +245,7 @@ def earliest_arrival_batched(
             "single query")
     plan = ensure_plan(plan)
     edges = view_for_plan(g, tger, union_window(windows), plan)
-    return earliest_arrival_over_view(
+    return _earliest_arrival_over_view(
         edges, windows, sources=int(source), plan=plan, n_vertices=g.n_vertices,
         pred=pred, max_rounds=max_rounds, visit_once=visit_once,
     )

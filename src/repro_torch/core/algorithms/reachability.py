@@ -26,31 +26,86 @@ from repro_torch.core.temporal_graph import TemporalGraph
 from repro_torch.core.tger import TGERIndex
 from repro_torch.engine.backends import segment_combine_windows
 from repro_torch.engine.fixpoint import FixpointRunner
+from repro_torch.engine.frontier import (
+    LadderSpec,
+    companion_for_view,
+    ladder_eligible,
+    rowwise_combine,
+    run_laddered,
+    sparse_window_valid,
+    take_rows,
+)
 from repro_torch.engine.plan import AccessPlan
 
 
-def _solve_rows(runner: FixpointRunner, end0, start0, frontier0):
-    """The overlaps fixpoint over the runner's view for [Q, V] rows; both
+def _reach_update(te, ts, dst, s_end, s_start, ok, combine):
+    """The two-pass lexicographic min over [Q, K] edge rows: min end per
+    destination, then min start among the edges achieving it.
+    ``combine(vals, ids, mask)`` is the dense or the sparse row-wise
+    segment min; both minimize over the same valid multiset."""
+    min_end = combine(te, dst, ok)
+    achieves = ok & (te == take_rows(min_end, dst))
+    min_start = combine(ts, dst, achieves)
+    better = (min_end < s_end) | ((min_end == s_end) & (min_start < s_start))
+    return (torch.where(better, min_end, s_end),
+            torch.where(better, min_start, s_start), better)
+
+
+def _reach_round(runner: FixpointRunner):
+    """State ``(last_end, last_start, frontier)`` of [Q, V] rows; both
     segment mins take the segment path."""
     edges, V = runner.edges, runner.n_vertices
     src, dst = edges.src.long(), edges.dst.long()
     ts, te = edges.t_start, edges.t_end
     valid = runner.valid if runner.batched else runner.valid[None, :]
 
+    def combine(vals, ids, mask):
+        return segment_combine_windows(vals, ids[0], V, "min", masks=mask)
+
     def body(state, rnd):
         s_end, s_start, frontier = state
         pe, ps = s_end[:, src], s_start[:, src]
         ok = valid & frontier[:, src] & (pe < INT_INF) & (ps <= ts) & (pe <= te)
-        min_end = segment_combine_windows(te.expand_as(ok), dst, V, "min", masks=ok)
-        achieves = ok & (te == min_end[:, dst])
-        min_start = segment_combine_windows(ts.expand_as(ok), dst, V, "min",
-                                            masks=achieves)
-        better = (min_end < s_end) | ((min_end == s_end) & (min_start < s_start))
-        return (torch.where(better, min_end, s_end),
-                torch.where(better, min_start, s_start), better)
+        return _reach_update(te.expand_as(ok), ts.expand_as(ok), dst.expand_as(ok),
+                             s_end, s_start, ok, combine)
 
-    s_end, s_start, _ = runner.run(lambda state: state[2].any(), body,
-                                   (end0, start0, frontier0))
+    return body
+
+
+def _reach_sparse_round(runner, gathered, state, rnd):
+    s_end, s_start, _ = state
+    edges = runner.edges
+    (slots, cov), = gathered
+    ok, ts, te = sparse_window_valid(edges, runner.windows, slots, cov)
+    src_at = edges.src[slots]
+    pe, ps = take_rows(s_end, src_at), take_rows(s_start, src_at)
+    ok &= (pe < INT_INF) & (ps <= ts) & (pe <= te)
+
+    def combine(vals, ids, mask):
+        return rowwise_combine(vals, ids, runner.n_vertices, "min", mask)
+
+    return _reach_update(te, ts, edges.dst[slots], s_end, s_start, ok, combine)
+
+
+def _reach_dense_round(runner, state, rnd):
+    return runner.hoisted("reach_round", lambda: _reach_round(runner))(state, rnd)
+
+
+_REACH_SPEC = LadderSpec("reach", _reach_dense_round, _reach_sparse_round,
+                         lambda s: s[2])
+
+
+def _solve_rows(runner: FixpointRunner, end0, start0, frontier0, ladder=False):
+    """The overlaps fixpoint over the runner's view for [Q, V] rows, dense
+    or (batched, ``ladder``) through the frontier-rung ladder."""
+    if ladder:
+        comp = companion_for_view(runner.edges.src, runner.n_vertices)
+        (s_end, s_start, _), _ = run_laddered(_REACH_SPEC, runner,
+                                              (end0, start0, frontier0),
+                                              companions=(comp,))
+    else:
+        s_end, s_start, _ = runner.run(lambda state: state[2].any(), _reach_round(runner),
+                                       (end0, start0, frontier0))
     reachable = s_end < INT_INF
     return (reachable, torch.where(reachable, s_start, 0),
             torch.where(reachable, s_end, 0))
@@ -92,8 +147,19 @@ def overlaps_reachability_over_view(
     """Batched overlaps fixpoints over a prebuilt (union-covering) view: row
     q solves ``(sources[q], windows[q])``.  ``init`` warm-starts
     ``(last_end, last_start)``, sound when every finite pair is the last
-    edge of a real overlaps chain inside the row's window.  The frontier
-    ladder is not in the port, so this is always the dense fixpoint."""
+    edge of a real overlaps chain inside the row's window.  Under a plan
+    with ``ladder > 0`` the frontier-rung ladder runs, the two-pass
+    lexicographic min evaluated on the gathered frontier slots only."""
+    return _overlaps_reachability_over_view(
+        edges, windows, plan=plan, n_vertices=n_vertices, sources=sources,
+        max_rounds=max_rounds, init=init, ladder=ladder_eligible(plan))
+
+
+def _overlaps_reachability_over_view(edges, windows, *, plan, n_vertices, sources=None,
+                                     max_rounds=0, init=None, ladder=False):
+    """``ladder=False`` is the dense path of the callers the JAX package
+    traces (``overlaps_reachability_batched``, ``sweep``, a serving
+    advance)."""
     runner = FixpointRunner.for_view(edges, windows=windows, sources=sources,
                                      plan=plan, n_vertices=n_vertices,
                                      max_rounds=max_rounds)
@@ -107,7 +173,7 @@ def overlaps_reachability_over_view(
         end0 = torch.as_tensor(init[0], dtype=torch.int32, device=runner.device)
         start0 = torch.as_tensor(init[1], dtype=torch.int32, device=runner.device)
         frontier0 = end0 < INT_INF
-    return _solve_rows(runner, end0, start0, frontier0)
+    return _solve_rows(runner, end0, start0, frontier0, ladder=ladder)
 
 
 def overlaps_reachability_batched(
@@ -123,9 +189,9 @@ def overlaps_reachability_batched(
     union-window view; row w equals the single-window run on windows[w]."""
     plan = ensure_plan(plan)
     edges = view_for_plan(g, tger, union_window(windows), plan)
-    return overlaps_reachability_over_view(edges, windows, sources=source,
-                                           plan=plan, n_vertices=g.n_vertices,
-                                           max_rounds=max_rounds)
+    return _overlaps_reachability_over_view(edges, windows, sources=source,
+                                            plan=plan, n_vertices=g.n_vertices,
+                                            max_rounds=max_rounds)
 
 
 __all__ = [

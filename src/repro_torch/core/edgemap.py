@@ -1,4 +1,5 @@
-"""Edge views for the TemporalEdgeMap model (paper §4.4, Table 2).
+"""TemporalEdgeMap / VertexMap: the Ligra-style programming model extended
+to time (paper §4.4, Table 2), and the edge views it runs over.
 
 The frontier is a dense boolean mask over vertices.  A view is the
 candidate edge set one query relaxes over, built once per query by the
@@ -6,14 +7,21 @@ method its :class:`~repro_torch.engine.plan.AccessPlan` prescribes: the
 whole graph (scan), a budgeted gather of the window's time-first range
 (index), or light edges plus each heavy vertex's window range (hybrid).
 All three give the same fixpoint; they differ only in work.
+
+``temporal_edge_map`` is one relaxation round under a plan: a min-combine
+into destinations over a scan view on ``pallas_tiled`` runs K1, every
+other combine the masked segment path.  ``temporal_edge_map_batched``
+serves W windows from ONE view over their union (one K1 launch for all W
+on a tiled scan plan).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.predicates import OrderingPredicateType, in_window
 from repro_torch.core.temporal_graph import TemporalGraph
 from repro_torch.core.tger import (
     TGERIndex,
@@ -24,7 +32,19 @@ from repro_torch.core.tger import (
     window_range,
 )
 from repro_torch.device import resolve_device, to_numpy
-from repro_torch.engine.plan import AccessPlan, make_plan, rung
+from repro_torch.engine.backends import (  # noqa: F401 (re-export)
+    combine_for_plan,
+    combine_windows_for_plan,
+    segment_combine,
+    segment_combine_windows,
+)
+from repro_torch.engine.frontier import (  # noqa: F401 (re-export)
+    FrontierView,
+    advance_frontier_view,
+    build_frontier_view,
+    companion_for_view,
+)
+from repro_torch.engine.plan import AccessPlan, make_plan, per_vertex_window_budget, rung
 from repro_torch.kernels.temporal_edgemap import INT_INF
 
 
@@ -76,6 +96,13 @@ def hybrid_view(g: TemporalGraph, idx: TGERIndex, window,
     pos_c = pos.clamp(max=g.n_edges - 1).reshape(-1)
     heavy = _gather(g, pos_c, h_mask.reshape(-1))
     return EdgeView(*[torch.cat([l, h]) for l, h in zip(light, heavy)])
+
+
+def hybrid_budget(g: TemporalGraph, idx: TGERIndex, window, floor: int = 16) -> int:
+    """Static per-vertex budget guaranteeing ``hybrid_view`` completeness:
+    the planner's ``per_vertex_window_budget``."""
+    return per_vertex_window_budget(g, idx, (int(window[0]), int(window[1])),
+                                    floor=floor)
 
 
 def ensure_plan(plan: Optional[AccessPlan]) -> AccessPlan:
@@ -285,6 +312,163 @@ def union_window(windows) -> Tuple[int, int]:
     return int(w[:, 0].min()), int(w[:, 1].max())
 
 
+RelaxFn = Callable[[EdgeView, torch.Tensor], Tuple[torch.Tensor, Optional[torch.Tensor]]]
+# relax(edges, src_state_gathered) -> (candidate values [K, ...], extra valid
+# [K] or None); batched, the gathered state and the outputs carry a leading
+# window axis [W, K] and ``edges``' fields broadcast against it
+
+
+def _gather_state(src_state, cols):
+    """``src_state`` (a tensor or a tuple of tensors) at the edges' source
+    columns ``cols`` (an index for [V] state, ``(slice, index)`` for [W, V])."""
+    if isinstance(src_state, tuple):
+        return tuple(a[cols] for a in src_state)
+    return src_state[cols]
+
+
+def edge_map_over_view(
+    edges: EdgeView,
+    window,                         # (ta, tb)
+    frontier: torch.Tensor,         # bool[V]
+    src_state,                      # [V, ...] tensor or tuple, gathered at the source side
+    relax: RelaxFn,
+    combine: str,
+    *,
+    plan: AccessPlan,
+    n_vertices: int,
+    direction: str = "out",
+    check_window: bool = True,
+    compute_touched: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One relaxation round over a PREBUILT edge view.  Returns
+    ``(combined[V, ...], touched[V])``; ``touched`` marks the segments that
+    received a valid contribution and costs an extra segment-sum, so
+    ``compute_touched=False`` skips it and returns ``touched=None``."""
+    from_v, to_v = _endpoints(edges, direction)
+    from_v = from_v.long()
+    valid = edges.mask & frontier[from_v]
+    if check_window:
+        valid = valid & in_window(edges.t_start, edges.t_end, window[0], window[1])
+    cand, extra = relax(edges, _gather_state(src_state, from_v))
+    if extra is not None:
+        valid = valid & extra
+    # the tile layout is the graph's native dst order: scan, out only
+    out = combine_for_plan(plan, cand, to_v, n_vertices, combine, mask=valid,
+                           use_layout=plan.method == "scan" and direction == "out")
+    if not compute_touched:
+        return out, None
+    touched = segment_combine(valid.to(torch.int32), to_v, n_vertices, "sum") > 0
+    return out, touched
+
+
+def temporal_edge_map(
+    g: TemporalGraph,
+    window,                         # (ta, tb)
+    frontier: torch.Tensor,         # bool[V]
+    src_state,                      # [V, ...] tensor or tuple, gathered at the source side
+    relax: RelaxFn,
+    combine: str,
+    *,
+    pred: Optional[OrderingPredicateType] = None,
+    direction: str = "out",         # 'out': reduce into dst; 'in': reduce into src
+    tger: Optional[TGERIndex] = None,
+    plan: Optional[AccessPlan] = None,
+    check_window: bool = True,
+    compute_touched: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One round of temporal edge relaxation under an AccessPlan (Table 2's
+    TemporalEdgeMap): build the plan's view, relax the frontier's valid
+    edges and combine into ``to`` vertices.  Returns ``(combined[V, ...],
+    touched[V] or None)``.  The ordering predicate is evaluated inside
+    ``relax`` (it needs algorithm state); ``pred`` is accepted for symmetry
+    with Table 2.  A min-combine into destinations over a scan view on
+    ``pallas_tiled`` runs K1; every other combine takes the segment path."""
+    plan = ensure_plan(plan)
+    edges = view_for_plan(g, tger, window, plan)
+    return edge_map_over_view(
+        edges, window, frontier, src_state, relax, combine, plan=plan,
+        n_vertices=g.n_vertices, direction=direction, check_window=check_window,
+        compute_touched=compute_touched)
+
+
+def edge_map_over_view_batched(
+    edges: EdgeView,
+    windows,                        # [W, 2]
+    frontiers: torch.Tensor,        # bool[W, V]
+    src_state,                      # [W, V, ...] tensor or tuple: per-window state
+    relax: RelaxFn,
+    combine: str,
+    *,
+    plan: AccessPlan,
+    n_vertices: int,
+    direction: str = "out",
+    check_window: bool = True,
+    compute_touched: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One batched round over a PREBUILT (union-window) view: every window
+    masks the shared candidate edges and the combine runs once as a [W, ·]
+    reduction (one K1 launch for all W on a tiled scan plan).  Returns
+    ``(combined[W, V, ...], touched[W, V] or None)``."""
+    from_v, to_v = _endpoints(edges, direction)
+    from_v = from_v.long()
+    windows = torch.as_tensor(windows, dtype=torch.int32,
+                              device=edges.src.device).reshape(-1, 2)
+    valid = edges.mask[None, :] & frontiers[:, from_v]
+    if check_window:
+        valid = valid & in_window(edges.t_start[None, :], edges.t_end[None, :],
+                                  windows[:, 0:1], windows[:, 1:2])
+    cand, extra = relax(edges, _gather_state(src_state, (slice(None), from_v)))
+    if extra is not None:
+        valid = valid & extra
+    cand = torch.broadcast_to(cand, valid.shape + cand.shape[valid.dim():])
+    out = combine_windows_for_plan(plan, cand, to_v, n_vertices, combine, masks=valid,
+                                   use_layout=plan.method == "scan" and direction == "out")
+    if not compute_touched:
+        return out, None
+    touched = segment_combine_windows(valid.to(torch.int32), to_v, n_vertices,
+                                      "sum") > 0
+    return out, touched
+
+
+def temporal_edge_map_batched(
+    g: TemporalGraph,
+    windows,                        # [W, 2] query windows
+    frontiers: torch.Tensor,        # bool[W, V]
+    src_state,                      # [W, V, ...] tensor or tuple
+    relax: RelaxFn,
+    combine: str,
+    *,
+    pred: Optional[OrderingPredicateType] = None,
+    direction: str = "out",
+    tger: Optional[TGERIndex] = None,
+    plan: Optional[AccessPlan] = None,
+    check_window: bool = True,
+    compute_touched: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Batched multi-window TemporalEdgeMap: ONE view over the union window
+    serves all W windows.  Plans from ``plan_query(..., windows=[...])``
+    budget for the union, so each window's valid edges are a masked subset
+    of the one gathered candidate set."""
+    plan = ensure_plan(plan)
+    windows = to_numpy(windows).astype(np.int32).reshape(-1, 2)
+    edges = view_for_plan(g, tger, union_window(windows), plan)
+    return edge_map_over_view_batched(
+        edges, windows, frontiers, src_state, relax, combine, plan=plan,
+        n_vertices=g.n_vertices, direction=direction, check_window=check_window,
+        compute_touched=compute_touched)
+
+
+def vertex_map(frontier: torch.Tensor, fn: Callable[[torch.Tensor], torch.Tensor]
+               ) -> torch.Tensor:
+    """VertexMap (Table 2): the new frontier {u in U | F(u)}, F vectorized
+    over vertex ids."""
+    return frontier & fn(torch.arange(frontier.shape[-1], device=frontier.device))
+
+
+def frontier_nonempty(frontier: torch.Tensor) -> torch.Tensor:
+    return frontier.any()
+
+
 def frontier_from_sources(n_vertices: int, sources, device=None) -> torch.Tensor:
     """bool[V] frontier holding ``sources``; on the CUDA card unless
     ``device`` is given, like the other entry points."""
@@ -299,10 +483,23 @@ __all__ = [
     "scan_view",
     "index_view",
     "hybrid_view",
+    "hybrid_budget",
     "ensure_plan",
     "view_for_plan",
     "union_window",
     "frontier_from_sources",
+    "frontier_nonempty",
+    "temporal_edge_map",
+    "temporal_edge_map_batched",
+    "edge_map_over_view",
+    "edge_map_over_view_batched",
+    "vertex_map",
+    "segment_combine",
+    "segment_combine_windows",
+    "FrontierView",
+    "build_frontier_view",
+    "advance_frontier_view",
+    "companion_for_view",
     "ring_positions",
     "index_ring_view",
     "advance_index_ring",

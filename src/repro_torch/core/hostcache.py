@@ -47,6 +47,8 @@ def identity_cache(max_entries: int = 16) -> Callable:
             cache[key] = (pins, value)
             return value
 
+        wrapped.cache = cache  # introspection for tests
+        wrapped.max_entries = max_entries
         return wrapped
 
     return deco

@@ -193,6 +193,18 @@ def vertex_range(g: TemporalGraph, v, start_lo, start_hi):
     return lo, hi
 
 
+def vertex_prefix(g: TemporalGraph, v, start_bound, strict: bool = False):
+    """Per-vertex 3-sided query, heap axis: the edge-id range [lo, hi) of
+    ``v``'s out-edges with t_start <= start_bound (< when ``strict``), by
+    bisection inside its start-sorted T-CSR slice.  Vectorized over
+    ``v``/``start_bound``."""
+    v = torch.as_tensor(v, device=g.device).long()
+    lo = g.out_offsets[v]
+    pos = bounded_searchsorted(g.t_start, lo, g.out_offsets[v + 1], start_bound,
+                               side="left" if strict else "right")
+    return lo, pos
+
+
 # --------------------------------------------------------------------------
 # host-side window positions (one device->host copy per TGER)
 # --------------------------------------------------------------------------
@@ -224,6 +236,7 @@ __all__ = [
     "gather_window_edges",
     "bounded_searchsorted",
     "vertex_range",
+    "vertex_prefix",
     "window_positions_host",
     "heavy_window_positions_host",
     "DEFAULT_DEGREE_CUTOFF",

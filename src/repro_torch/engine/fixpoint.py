@@ -32,10 +32,15 @@ class FixpointMetrics(NamedTuple):
     """Convergence record of one fixpoint run.  ``rounds`` counts loop-body
     executions (the last one changes nothing); ``touched_total`` sums, over
     all rounds, the vertices that received at least one valid
-    contribution."""
+    contribution.  ``frontier_trace`` (opt-in) is the i32[max_rounds]
+    per-round occupancy on the host: entry r is round r's touched-vertex
+    count (summed over batch rows), -1 past the executed rounds; the
+    collapse of a deep solve's tail is what the frontier ladder's handoff
+    reads."""
 
     rounds: int
     touched_total: int
+    frontier_trace: Optional[torch.Tensor] = None
 
 
 class FixpointRunner:
@@ -66,6 +71,7 @@ class FixpointRunner:
         # the tiled kernels need the graph's native dst order
         self.use_layout = plan.method == "scan" and direction == "out"
         self.segments = segments_for(plan, to_v, use_layout=self.use_layout)
+        self._hoisted = {}
 
         if self.batched:
             self.windows = torch.as_tensor(
@@ -83,6 +89,15 @@ class FixpointRunner:
             self.sources = None
             self.valid = edges.mask & in_window(
                 edges.t_start, edges.t_end, *self.window)        # [E']
+
+    def hoisted(self, key, build: Callable[[], Any]):
+        """``build()`` once per runner, cached under ``key``: the
+        loop-invariant tensors and round closures an algorithm derives from
+        the view, so a ladder's dense rounds (one call per round) reuse
+        them as the dense ``run`` body does."""
+        if key not in self._hoisted:
+            self._hoisted[key] = build()
+        return self._hoisted[key]
 
     # -- construction ------------------------------------------------------
 
@@ -193,18 +208,26 @@ class FixpointRunner:
             rnd += 1
         return (state, rnd) if with_rounds else state
 
-    def run_with_metrics(self, cond: Callable, body: Callable, init
-                         ) -> Tuple[Any, FixpointMetrics]:
+    def run_with_metrics(self, cond: Callable, body: Callable, init, *,
+                         frontier_trace: bool = False) -> Tuple[Any, FixpointMetrics]:
         """Metered loop: ``body(state, rnd) -> (state, touched)``; returns
-        ``(final_state, FixpointMetrics)``.  The touched count accumulates
-        on the device and is read once at the end."""
+        ``(final_state, FixpointMetrics)``.  The touched count, and with
+        ``frontier_trace=True`` each round's occupancy, accumulate on the
+        device and are read once at the end."""
         rnd, state = 0, init
         touched_total = torch.zeros((), dtype=torch.int64, device=self.device)
+        trace = (torch.full((self.max_rounds,), -1, dtype=torch.int32, device=self.device)
+                 if frontier_trace else None)
         while rnd < self.max_rounds and bool(cond(state)):
             state, touched = body(state, rnd)
-            touched_total += touched.sum()
+            occ = touched.sum()
+            touched_total += occ
+            if trace is not None:
+                trace[rnd] = occ
             rnd += 1
-        return state, FixpointMetrics(rounds=rnd, touched_total=int(touched_total))
+        return state, FixpointMetrics(
+            rounds=rnd, touched_total=int(touched_total),
+            frontier_trace=None if trace is None else trace.cpu())
 
 
 __all__ = ["FixpointRunner", "FixpointMetrics"]

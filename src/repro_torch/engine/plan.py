@@ -57,13 +57,19 @@ class AccessPlan:
     n_windows: int = 0               # batched sweep width (0 = single window)
     ring_capacity: int = 0           # ring-view slot count (0 = derive)
     batch_sig: str = ""              # QueryBatch shape signature ("" = not a batch plan)
+    # Frontier-rung ladder cap (engine/frontier.py): 0 disables; a positive
+    # value is the largest frontier occupancy (vertex rung) the sparse
+    # segments of a laddered fixpoint serve.  Host-level ``*_over_view``
+    # solves under such a plan descend to frontier-proportional rounds; the
+    # batched entry points, ``sweep`` and a serving advance stay dense.
+    ladder: int = 0
 
 
 def _cache_key(method: str, backend: str, budget: int, pvb: int, tile_v: int,
                block_e: int, n_windows: int, ring_capacity: int,
-               batch_sig: str = "") -> str:
+               batch_sig: str = "", ladder: int = 0) -> str:
     """The JAX package's key format; the exchange budget is 0 (``x0``) and
-    the tier and ladder suffixes are absent in the port so far."""
+    the tier suffix is absent in the port so far (every plan is "hot")."""
     key = f"{method}/{backend}/b{budget}/pv{pvb}/x0/t{tile_v}x{block_e}"
     if ring_capacity:
         key += f"/r{ring_capacity}"
@@ -71,6 +77,8 @@ def _cache_key(method: str, backend: str, budget: int, pvb: int, tile_v: int,
         key += f"/w{n_windows}"
     if batch_sig:
         key += f"/q{batch_sig}"
+    if ladder:
+        key += f"/L{ladder}"
     return key
 
 
@@ -92,6 +100,7 @@ def make_plan(
     block_e: int = DEFAULT_BLOCK_E,
     n_windows: int = 0,
     ring_capacity: int = 0,
+    ladder: int = 0,
 ) -> AccessPlan:
     """Direct plan constructor (the planner-free path: tests, defaults).
     ``layout``'s arrays become tensors on the device they already have
@@ -100,6 +109,8 @@ def make_plan(
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if ladder < 0:
+        raise ValueError(f"ladder must be >= 0, got {ladder}")
     if layout is not None:
         perm = torch.as_tensor(layout.perm, dtype=torch.int32)
         block_tile = torch.as_tensor(layout.block_tile, dtype=torch.int32,
@@ -124,9 +135,10 @@ def make_plan(
         n_edges=int(n_edges),
         cache_key=_cache_key(method, backend, int(budget), int(per_vertex_budget),
                              int(tile_v), int(block_e), int(n_windows),
-                             int(ring_capacity)),
+                             int(ring_capacity), ladder=int(ladder)),
         n_windows=int(n_windows),
         ring_capacity=int(ring_capacity),
+        ladder=int(ladder),
     )
 
 
@@ -217,12 +229,13 @@ def plan_query(
     ``windows=[(t0, t1), ...]`` plans a batched sweep over the union window
     whose budgets cover every member window.
 
-    The ladder, the cold store's tiers and the distributed exchange budget
-    are not in the port yet and raise ``NotImplementedError``.
+    ``ladder`` (>= 0) is the frontier-rung cap the plan carries
+    (:attr:`AccessPlan.ladder`, ``/L{N}`` on the cache key).  The cold
+    store's tiers and the distributed exchange budget are not in the port
+    yet and raise ``NotImplementedError``.
     """
-    if ladder:
-        raise NotImplementedError(
-            "ladder > 0 (the frontier ladder) is ROADMAP.md Queue 1 item 11")
+    if ladder < 0:
+        raise ValueError(f"ladder must be >= 0, got {ladder}")
     if coldstore is not None or tier not in (None, "hot"):
         raise NotImplementedError(
             "coldstore= and tier != 'hot' (the cold store) are ROADMAP.md "
@@ -293,7 +306,7 @@ def plan_query(
         budget=budget, per_vertex_budget=per_vertex,
         layout=layout, n_edges=n_edges if layout is not None else 0,
         tile_v=tile_v, block_e=block_e,
-        n_windows=n_windows, ring_capacity=ring_capacity,
+        n_windows=n_windows, ring_capacity=ring_capacity, ladder=int(ladder),
     )
 
 
@@ -332,7 +345,8 @@ def plan_batch(
         plan, batch_sig=sig,
         cache_key=_cache_key(plan.method, plan.backend, plan.budget,
                              plan.per_vertex_budget, plan.tile_v, plan.block_e,
-                             plan.n_windows, plan.ring_capacity, sig))
+                             plan.n_windows, plan.ring_capacity, sig,
+                             ladder=plan.ladder))
 
 
 def decision_for(

@@ -37,26 +37,26 @@ import torch
 from repro_torch.core.algorithms import (
     earliest_arrival,
     earliest_arrival_batched,
-    earliest_arrival_over_view,
     overlaps_reachability,
     overlaps_reachability_batched,
-    overlaps_reachability_over_view,
     temporal_betweenness,
     temporal_betweenness_batched,
-    temporal_betweenness_over_view,
     temporal_bfs,
     temporal_bfs_batched,
-    temporal_bfs_over_view,
     temporal_cc,
     temporal_cc_batched,
-    temporal_cc_over_view,
     temporal_kcore,
     temporal_kcore_batched,
-    temporal_kcore_over_view,
     temporal_pagerank,
     temporal_pagerank_batched,
     temporal_pagerank_over_view,
 )
+from repro_torch.core.algorithms.bfs import _temporal_bfs_over_view
+from repro_torch.core.algorithms.centrality import _temporal_betweenness_over_view
+from repro_torch.core.algorithms.connectivity import _temporal_cc_over_view
+from repro_torch.core.algorithms.kcore import _temporal_kcore_over_view
+from repro_torch.core.algorithms.paths import _earliest_arrival_over_view
+from repro_torch.core.algorithms.reachability import _overlaps_reachability_over_view
 from repro_torch.core.edgemap import (
     INT_INF,
     EdgeView,
@@ -71,6 +71,7 @@ from repro_torch.core.tger import (
     window_positions_host,
 )
 from repro_torch.device import to_numpy
+from repro_torch.engine.frontier import ladder_eligible
 from repro_torch.engine.plan import (
     AccessPlan,
     per_vertex_window_budget,
@@ -86,11 +87,13 @@ from repro_torch.engine.queries import QueryBatch, QuerySpec, dedup_rows
 class _Algo(NamedTuple):
     """One algorithm's serving contract.
 
-    ``solve(edges, windows, sources, plan, n_vertices, init, kwargs)`` runs
-    a group's rows over a prebuilt (ring) view and returns ``(result,
-    rounds)``: the runner's round count for EA, -1 otherwise.  ``warm``
-    builds a containment warm init for new rows (None: warm starts
-    refused).  ``n_outputs`` is the result-tuple arity (1 = one [Q, V])."""
+    ``solve(edges, windows, sources, plan, n_vertices, init, kwargs,
+    ladder)`` runs a group's rows over a prebuilt (ring) view and returns
+    ``(result, rounds)``: the round count for EA, -1 otherwise; ``ladder``
+    says whether the frontier-rung ladder may run (cold solves, as in the
+    JAX package, where only the fused advance is traced).  ``warm`` builds
+    a containment warm init for new rows (None: warm starts refused).
+    ``n_outputs`` is the result-tuple arity (1 = one [Q, V])."""
 
     solve: Callable
     batched: Callable               # cold batched entry (sweep)
@@ -107,45 +110,47 @@ def _require_k(kw):
     return kw.pop("k"), kw
 
 
-def _solve_ea(edges, windows, sources, plan, n_vertices, init, kwargs):
-    return earliest_arrival_over_view(
+def _solve_ea(edges, windows, sources, plan, n_vertices, init, kwargs, ladder):
+    return _earliest_arrival_over_view(
         edges, windows, sources=sources, plan=plan, n_vertices=n_vertices,
-        init=init, with_rounds=True, **kwargs)
+        init=init, with_rounds=True, ladder=ladder, **kwargs)
 
 
-def _solve_reach(edges, windows, sources, plan, n_vertices, init, kwargs):
-    return overlaps_reachability_over_view(
+def _solve_reach(edges, windows, sources, plan, n_vertices, init, kwargs, ladder):
+    return _overlaps_reachability_over_view(
         edges, windows, sources=sources, plan=plan, n_vertices=n_vertices,
-        init=init, **kwargs), -1
+        init=init, ladder=ladder, **kwargs), -1
 
 
-def _solve_pagerank(edges, windows, sources, plan, n_vertices, init, kwargs):
+def _solve_pagerank(edges, windows, sources, plan, n_vertices, init, kwargs, ladder):
+    # the ladder is a no-op for PageRank
     return temporal_pagerank_over_view(
         edges, windows, plan=plan, n_vertices=n_vertices, init=init, **kwargs), -1
 
 
-def _solve_bfs(edges, windows, sources, plan, n_vertices, init, kwargs):
-    return temporal_bfs_over_view(
+def _solve_bfs(edges, windows, sources, plan, n_vertices, init, kwargs, ladder):
+    return _temporal_bfs_over_view(
         edges, windows, sources=sources, plan=plan, n_vertices=n_vertices,
-        init=init, **kwargs), -1
+        init=init, ladder=ladder, **kwargs), -1
 
 
-def _solve_cc(edges, windows, sources, plan, n_vertices, init, kwargs):
-    return temporal_cc_over_view(
-        edges, windows, plan=plan, n_vertices=n_vertices, init=init, **kwargs), -1
-
-
-def _solve_kcore(edges, windows, sources, plan, n_vertices, init, kwargs):
-    k, kwargs = _require_k(kwargs)
-    return temporal_kcore_over_view(
-        edges, windows, plan=plan, n_vertices=n_vertices, k=k, init=init,
+def _solve_cc(edges, windows, sources, plan, n_vertices, init, kwargs, ladder):
+    return _temporal_cc_over_view(
+        edges, windows, plan=plan, n_vertices=n_vertices, init=init, ladder=ladder,
         **kwargs), -1
 
 
-def _solve_betweenness(edges, windows, sources, plan, n_vertices, init, kwargs):
-    return temporal_betweenness_over_view(
+def _solve_kcore(edges, windows, sources, plan, n_vertices, init, kwargs, ladder):
+    k, kwargs = _require_k(kwargs)
+    return _temporal_kcore_over_view(
+        edges, windows, plan=plan, n_vertices=n_vertices, k=k, init=init,
+        ladder=ladder, **kwargs), -1
+
+
+def _solve_betweenness(edges, windows, sources, plan, n_vertices, init, kwargs, ladder):
+    return _temporal_betweenness_over_view(
         edges, windows, sources=sources, plan=plan, n_vertices=n_vertices,
-        init=init, **kwargs), -1
+        init=init, ladder=ladder, **kwargs), -1
 
 
 # ---- containment warm starts ----------------------------------------------
@@ -505,7 +510,9 @@ def _solve_groups(edges, plan, n_vertices, schedule, prev_results,
     """Every group's solve (of only its genuinely new rows) and row
     assembly over the just-advanced view.  ``schedule`` holds (algorithm,
     params, row_map, new_pos, solve_map) per group; ``solve_map`` (None =
-    identity) fans the deduplicated solved rows out onto the new rows."""
+    identity) fans the deduplicated solved rows out onto the new rows.
+    The solves are dense: in the JAX package this advance is one traced
+    program, where the ladder never engages."""
     out, rounds_out = [], []
     for gi, (algorithm, params, row_map, new_pos, solve_map) in enumerate(schedule):
         entry = _ALGOS[algorithm]
@@ -513,7 +520,7 @@ def _solve_groups(edges, plan, n_vertices, schedule, prev_results,
         if new_pos:
             sub, rounds = entry.solve(
                 edges, new_windows[gi], new_sources[gi], plan, n_vertices,
-                inits[gi], dict(params))
+                inits[gi], dict(params), False)
             if solve_map is not None:
                 sub = _gather_solved(sub, solve_map, entry.n_outputs)
             res = sub if prev is None else _assemble(
@@ -646,7 +653,7 @@ def _advance(
             n_unique += len(u_sources)
             src_dev = None if entry.source_free else _sources_tensor(u_sources, dev)
             res, rnd = entry.solve(edges, u_windows, src_dev, p, g.n_vertices,
-                                   None, dict(key[1]))
+                                   None, dict(key[1]), ladder_eligible(p))
             if tuple(inverse) != tuple(range(len(u_sources))):
                 res = _gather_solved(res, inverse, entry.n_outputs)
             results.append(res)
@@ -784,7 +791,7 @@ def _advance(
 # public entry points
 # ---------------------------------------------------------------------------
 
-def _not_ported(mesh, admission, bucket_headroom, coldstore, ladder) -> None:
+def _not_ported(mesh, admission, bucket_headroom, coldstore) -> None:
     """Options of the JAX package's server that the port does not have yet;
     raised before any state is touched."""
     if admission not in (None, "bucketed"):
@@ -800,9 +807,6 @@ def _not_ported(mesh, admission, bucket_headroom, coldstore, ladder) -> None:
     if coldstore is not None:
         raise NotImplementedError(
             "coldstore= (tiered history) is ROADMAP.md Queue 1 item 12")
-    if ladder:
-        raise NotImplementedError(
-            "ladder > 0 (the frontier ladder) is ROADMAP.md Queue 1 item 11")
 
 
 def serve_batch(
@@ -837,10 +841,16 @@ def serve_batch(
     A state from another graph, or with an incompatible explicit ``plan``,
     falls back to a cold serve and is not consumed.  ``warm_start=True``
     opts into the containment warm starts (EA and cc exact, reachability
-    sound, refused elsewhere).  ``mesh``, ``admission='bucketed'``,
-    ``bucket_headroom``, ``coldstore`` and ``ladder`` are not in the port
-    yet and raise ``NotImplementedError`` before any state is consumed."""
-    _not_ported(mesh, admission, bucket_headroom, coldstore, ladder)
+    sound, refused elsewhere).
+
+    ``ladder`` sets the frontier-rung cap on the batch plan (it rides the
+    cache key, so a chain keeps the ladder it cold-started with): the cold
+    solves run through the frontier ladder (bit-identical rows), and a
+    steady advance keeps its dense solves.  ``mesh``,
+    ``admission='bucketed'``, ``bucket_headroom`` and ``coldstore`` are not
+    in the port yet and raise ``NotImplementedError`` before any state is
+    consumed."""
+    _not_ported(mesh, admission, bucket_headroom, coldstore)
     if not isinstance(batch, QueryBatch):
         batch = QueryBatch.make(batch)
     for spec in batch.specs:
@@ -857,7 +867,7 @@ def serve_batch(
     return _advance(
         g, tger, groups, state, plan_arg=plan,
         plan_builder=lambda: plan_batch(g, tger, batch, access=access,
-                                        backend=backend),
+                                        backend=backend, ladder=int(ladder)),
         warm_start=warm_start)
 
 
@@ -886,14 +896,14 @@ def sweep_incremental(
     A state from another graph / source / algorithm / kwargs / plan is not
     reused and not consumed (a cold start).  Index and hybrid plans advance
     their ring by the entering positions; scan plans reuse the full view.
-    ``warm_start=True`` as in :func:`serve_batch`.  ``coldstore``,
-    ``ladder`` and ``tiny_budget_gate`` are not in the port yet and raise
-    ``NotImplementedError`` before any state is consumed."""
-    _not_ported(None, None, 0, coldstore, ladder)
+    ``warm_start=True`` and ``ladder`` as in :func:`serve_batch`.
+    ``coldstore`` and ``tiny_budget_gate`` are not in the port yet and
+    raise ``NotImplementedError`` before any state is consumed."""
+    _not_ported(None, None, 0, coldstore)
     if tiny_budget_gate:
         raise NotImplementedError(
             "tiny_budget_gate (serving tiny rings cold) waits for a crossover "
-            "measured on the card: ROADMAP.md Queue 4, 'Next'")
+            "measured on the card: ROADMAP.md Queue 2 item 8")
     entry = _algo(algorithm)
     windows = to_numpy(windows).astype(np.int32).reshape(-1, 2)
     params = tuple(sorted(kwargs.items()))
@@ -921,7 +931,7 @@ def sweep_incremental(
     results, new_state = _advance(
         g, tger, groups, state, plan_arg=plan,
         plan_builder=lambda: plan_query(g, tger, windows=windows, access=access,
-                                        backend=backend),
+                                        backend=backend, ladder=int(ladder)),
         warm_start=warm_start)
     return results[0], new_state
 

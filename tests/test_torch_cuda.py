@@ -314,6 +314,52 @@ def test_fastest_on_card_matches_cpu(cuda):
     assert torch.equal(f0, f1) and n0 == 0 and n1 > 0
 
 
+@pytest.mark.parametrize("alg", ["ea", "cc"])
+def test_laddered_on_card_matches_dense(cuda, alg):
+    """The frontier ladder on a tiled scan plan (cap 64): bit-identical to
+    the dense solve on the card and to the CPU's laddered solve, its
+    segment record equal to the CPU's, and K1 launched once per dense
+    round of the ladder (its sparse rounds are row-wise scatters)."""
+    from repro_torch.core.algorithms import paths, connectivity
+    from repro_torch.core.algorithms import earliest_arrival_over_view, temporal_cc_over_view
+    from repro_torch.core.edgemap import union_window, view_for_plan
+    from repro_torch.engine import frontier
+
+    module = paths if alg == "ea" else connectivity
+    runs = []
+    for dev in ("cpu", cuda):
+        g, idx, _, _ = _small_graph(dev)
+        t_hi = int(g.t_end.max())
+        wins = sliding_windows(t_hi, (t_hi - int(g.t_start.min())) // 3, 1000, 3)
+        out = {}
+        for ladder in (0, 64):
+            plan = plan_query(g, idx, windows=wins, access="scan", backend="pallas_tiled",
+                              ladder=ladder)
+            edges = view_for_plan(g, idx, union_window(wins), plan)
+            segs = []
+
+            def spy(*args, segments=None, **kw):
+                return frontier.run_laddered(*args, segments=segs, **kw)
+
+            reset_launch_counts()
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(module, "run_laddered", spy)
+                if alg == "ea":
+                    res = earliest_arrival_over_view(edges, wins, plan=plan,
+                                                     n_vertices=g.n_vertices,
+                                                     sources=[0, 1, 2])
+                else:
+                    res = temporal_cc_over_view(edges, wins, plan=plan,
+                                                n_vertices=g.n_vertices)
+            out[ladder] = (res.cpu(), segs, launch_counts()["segment_min_tiles"])
+        runs.append(out)
+    cpu, card = runs
+    assert torch.equal(card[64][0], card[0][0]) and torch.equal(card[64][0], cpu[64][0])
+    assert card[64][1] == cpu[64][1] and card[64][1]
+    dense_rounds = sum(n for kind, _, _, n in card[64][1] if kind == "dense")
+    assert cpu[64][2] == 0 and card[64][2] == dense_rounds
+
+
 def test_serve_batch_on_card_matches_cpu(cuda):
     """Three advances of a multi-tenant batch on a tiled scan plan: the
     integer groups equal the CPU run's, PageRank within its tolerance, and

@@ -96,7 +96,6 @@ def test_plan_query_without_index_and_errors():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(ladder=4), "item 11"),
     (dict(coldstore=object()), "item 12"),
     (dict(tier="cold"), "item 12"),
     (dict(exchange_budget=8), "item 14"),
@@ -105,6 +104,31 @@ def test_out_of_slice_options_raise(kw, item):
     _, tg, _, ti = _pair("power_law", 7)
     with pytest.raises(NotImplementedError, match=item):
         tplan.plan_query(tg, ti, (0, 10), **kw)
+
+
+def test_ladder_rides_the_cache_key_as_in_jax():
+    """``ladder=4`` is planned (the frontier ladder is in the port): the
+    plan carries it and its cache key equals the JAX plan's, ``/L4``
+    included, for single-window, batched and batch plans; a negative
+    ladder raises as in the JAX package."""
+    jg, tg, ji, ti = _pair("power_law", 7)
+    wins = _windows(jg)[:3]
+    for access in ("scan", "index", "hybrid"):
+        jp = jplan.plan_query(jg, ji, wins[1], access=access, ladder=4)
+        tp = tplan.plan_query(tg, ti, wins[1], access=access, ladder=4)
+        assert tp.ladder == 4 and tp.cache_key == jp.cache_key
+        assert tp.cache_key.endswith("/L4")
+        jp = jplan.plan_query(jg, ji, windows=wins, access=access, ladder=4)
+        tp = tplan.plan_query(tg, ti, windows=wins, access=access, ladder=4)
+        assert tp.cache_key == jp.cache_key
+    import repro.engine.queries as jqueries
+    jb = jqueries.QueryBatch.make([jqueries.QuerySpec.make("cc", wins[0])])
+    tb = tqueries.QueryBatch.make([tqueries.QuerySpec.make("cc", wins[0])])
+    assert (tplan.plan_batch(tg, ti, tb, ladder=4).cache_key
+            == jplan.plan_batch(jg, ji, jb, ladder=4).cache_key)
+    for fn, g, i in ((jplan.plan_query, jg, ji), (tplan.plan_query, tg, ti)):
+        with pytest.raises(ValueError, match="ladder"):
+            fn(g, i, (0, 10), ladder=-1)
 
 
 def test_plan_batch_not_ported():

@@ -402,9 +402,9 @@ def test_serve_batch_mismatched_state_falls_cold_without_consuming():
 
 
 def test_unknown_algorithm_and_options_not_in_the_port():
-    """An unknown algorithm raises ValueError; mesh, bucketed admission,
-    the cold store and the ladder raise NotImplementedError naming their
-    ROADMAP item, before the carried state is touched."""
+    """An unknown algorithm raises ValueError; mesh, bucketed admission
+    and the cold store raise NotImplementedError naming their ROADMAP
+    item, before the carried state is touched."""
     _, _, g, idx, _, t_min, t_max = _case()
     with pytest.raises(ValueError, match="algorithm"):
         serve_batch(g, te.QueryBatch.make(
@@ -415,13 +415,11 @@ def test_unknown_algorithm_and_options_not_in_the_port():
     _, state = serve_batch(g, batch, idx, access="index")
     for kw, item in ((dict(mesh=2), "item 14"), (dict(admission="bucketed"), "item 13"),
                      (dict(bucket_headroom=4), "item 13"),
-                     (dict(coldstore=object()), "item 12"), (dict(ladder=4), "item 11")):
+                     (dict(coldstore=object()), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             serve_batch(g, batch, idx, state=state, access="index", **kw)
     with pytest.raises(ValueError, match="admission"):
         serve_batch(g, batch, idx, state=state, admission="eager")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sweep_incremental(g, 1, [(b - 50, b)], idx, ladder=2)
     assert not state.consumed
     _, state = serve_batch(g, batch, idx, state=state, access="index")
     assert state.last_advance == "noop"
