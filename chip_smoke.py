@@ -42,7 +42,21 @@
    ``frontier_trace`` against a numpy oracle; profiles of one laddered and
    one dense EA query on transit wide.  K1 must launch inside laddered
    solves.
-6. K4 (flash-decode attention) at phi4-mini-3.8b's decode shape (8 rows,
+6. The cold store and the daemon, their launch counts read around them:
+   a ``ColdStore`` under the transit index ring stream (through
+   ``GraphBatchServer``; the store's watermark on the ring's low watermark
+   and the rows equal to cold sweeps after every advance; the backfill and
+   each advance's compaction timed on the host), time travel over an
+   evicted and a split window (rows equal to the full-history index solve,
+   the stitched view equal to ``index_ring_view``, the hot chain still a
+   delta), again through a store spilled to disk; the daemon on power-law
+   scan/pallas_tiled (``run_daemon``'s tenants and churn, betweenness in a
+   class of its own: every served tenant against a cold solve, the
+   round-robin, K1 every tick and K3 in PageRank's; one tick profiled);
+   ``run_daemon --history-chunks 1024`` on transit with a pinned CC
+   tenant (its rows the full-history solve on every tick, its repeat
+   serve a noop).
+7. K4 (flash-decode attention) at phi4-mini-3.8b's decode shape (8 rows,
    2048 positions, ragged lengths, GQA group 3, d_head 128) in bfloat16 and
    float32 against its plain version, timed beside it, beside
    scaled_dot_product_attention and beside its bytes bound: warm (one set of
@@ -51,7 +65,7 @@
    kernels of each source present in DIR (``temporal_edgemap.cu``,
    ``segment_spmm.cu``, ``decode_attention.cu``: the kernels before their
    redesign) are built and timed in turns with these (old, new, new, old).
-7. LM continuous batching at phi4-mini-3.8b's published widths (32 layers,
+8. LM continuous batching at phi4-mini-3.8b's published widths (32 layers,
    bfloat16, random weights from ``--seed``): a ServeEngine of 8 slots x
    2048 positions serves 16 seeded requests (prompts of 16-512 tokens,
    budgets up to 64, one of 1 and one of 0), with launch counts reset just
@@ -59,9 +73,10 @@
    of the engine's own decode steps and every served token are checked
    against ``forward``; prefill and decode times, tokens/s and a profile of
    one decode step are printed.
-8. Prints the kernel table as one JSON line (each kernel's launches on
-   the counted paths of items 4, 5 and 7, the ladder phase's also apart,
-   and K1's launches inside laddered solves), then the result line.
+9. Prints the kernel table as one JSON line (each kernel's launches on
+   the counted paths of items 4–6 and 8, the ladder phase's and the
+   history/daemon phase's also apart, and K1's launches inside laddered
+   solves), then the result line.
 
 Any mismatch raises, and the script exits non-zero.  It imports nothing
 of JAX or of the JAX package.
@@ -1084,6 +1099,13 @@ def _batch_rows_vs_cold(torch, np, name, g, tger, batch, results, plan, failures
                                to_numpy(res[qi]),
                                to_numpy(want[col[r.window]]).astype(np.float64), failures)
                 continue
+            if alg == "betweenness":   # float sums: analytics_path's tolerance
+                a, b = to_numpy(res[qi]), to_numpy(want[col[r.window]])
+                scale = max(float(np.abs(b).max()), 1.0)
+                if not np.abs(a.astype(np.float64) - b).max() <= 1e-5 * scale:
+                    raise AssertionError(f"[{name}] serving advance {step}: betweenness "
+                                         f"row {qi} off the cold sweep")
+                continue
             parts = zip(res, want) if isinstance(res, tuple) else ((res, want),)
             for a, b in parts:
                 if not torch.equal(a[qi], b[col[r.window]]):
@@ -1213,24 +1235,20 @@ def idle_record(np, name, algorithm, prof, phase_ms, unit="advance"):
     return rec
 
 
-def ring_stream(torch, np, name, g, tger, fields, access):
-    """An index or hybrid ring stream: EA from RING_SOURCES sources over
-    SERVE_WINDOWS narrow windows, RING_ADVANCES one-stride advances.  After
-    each, the advanced ring equals a cold ring build at its (lo, hi) field
-    for field, the rows equal cold sweeps, and the log reads
-    ``fused:<access>``."""
-    from repro_torch.core.edgemap import hybrid_ring_view, index_ring_view
+def ring_batches(np, fields):
+    """The ring streams' tenant batch: ``batch_at(base)`` is EA from
+    RING_SOURCES sources active in the last span/50 over SERVE_WINDOWS
+    sliding windows of span/50 ending at ``base``; returns it with the cold
+    start's base, the stride and the sources."""
     from repro_torch.engine import QueryBatch, QuerySpec
-    from repro_torch.serve import dispatch_log, serve_batch, sliding_windows, sweep
+    from repro_torch.serve import sliding_windows
 
-    sync = torch.cuda.synchronize
     src_np, _, ts_np, te_np = fields
     t_hi = int(te_np.max())
     width = (t_hi - int(ts_np.min())) // 50
     stride = width // 4
     active = np.unique(src_np[ts_np >= t_hi - width])
     srcs = [int(active[len(active) // 3]), int(active[2 * len(active) // 3])]
-    build = index_ring_view if access == "index" else hybrid_ring_view
 
     def batch_at(base):
         return QueryBatch.make([QuerySpec.make("earliest_arrival", tuple(int(x) for x in w),
@@ -1238,7 +1256,21 @@ def ring_stream(torch, np, name, g, tger, fields, access):
                                 for w in sliding_windows(base, width, stride,
                                                          SERVE_WINDOWS)])
 
-    base = t_hi - (RING_ADVANCES + 1) * stride
+    return batch_at, t_hi - (RING_ADVANCES + 1) * stride, stride, srcs
+
+
+def ring_stream(torch, np, name, g, tger, fields, access):
+    """An index or hybrid ring stream: EA from RING_SOURCES sources over
+    SERVE_WINDOWS narrow windows, RING_ADVANCES one-stride advances.  After
+    each, the advanced ring equals a cold ring build at its (lo, hi) field
+    for field, the rows equal cold sweeps, and the log reads
+    ``fused:<access>``."""
+    from repro_torch.core.edgemap import hybrid_ring_view, index_ring_view
+    from repro_torch.serve import dispatch_log, serve_batch, sweep
+
+    sync = torch.cuda.synchronize
+    build = index_ring_view if access == "index" else hybrid_ring_view
+    batch_at, base, stride, srcs = ring_batches(np, fields)
     _, state = serve_batch(g, batch_at(base), tger, access=access)
     records, fused = [], 0
     for step in range(1, RING_ADVANCES + 1):
@@ -1688,6 +1720,397 @@ def ladder_path(torch, np, graphs, contexts, failures, tem):
         raise AssertionError("K1 was never launched inside a laddered solve")
     log(f"ladder phase: {len(solves)} laddered solves, K1 {laddered_k1} launches inside them")
     return records, laddered_k1
+
+
+# the tiered-history and daemon phase: run_daemon's tenant mix and churn
+DAEMON_TENANTS = 16
+DAEMON_TICKS = 12
+HISTORY_TICKS = 8
+DAEMON_ARRIVALS, DAEMON_DEPARTURES = 0.5, 0.25   # run_daemon's default rates
+DAEMON_ALGORITHMS = ("earliest_arrival", "reachability", "bfs", "cc", "pagerank")
+DAEMON_PAGERANK_ITERS = 8
+
+
+def host_timed(obj, method):
+    """Replace ``obj.<method>`` by a wrapper that appends (host ms, result)
+    of every call to the returned list."""
+    fn, calls = getattr(obj, method), []
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        calls.append(((time.perf_counter() - t0) * 1e3, out))
+        return out
+
+    setattr(obj, method, wrapper)
+    return calls
+
+
+def daemon_spec(n_vertices, width, i):
+    """run_daemon's tenant ``i``: the five algorithms in turn over a window
+    of ``width`` (re-anchored every tick), sources 7 i mod V."""
+    from repro_torch.engine import QuerySpec
+
+    alg = DAEMON_ALGORITHMS[i % len(DAEMON_ALGORITHMS)]
+    if alg == "cc":
+        return QuerySpec.make(alg, (0, width))
+    if alg == "pagerank":
+        return QuerySpec.make(alg, (0, width), n_iters=DAEMON_PAGERANK_ITERS)
+    return QuerySpec.make(alg, (0, width), sources=(7 * i) % n_vertices)
+
+
+def history_ring(torch, np, name, g, tger, fields):
+    """The cold store under the index ring stream (``ring_batches``, a cold
+    start and RING_ADVANCES advances through ``GraphBatchServer``): the
+    store's watermark on the ring's low watermark and rows equal to cold
+    sweeps after every advance; the first note's backfill and each
+    advance's compaction timed on the host.  Then time travel: an evicted
+    and a split window (EA from the stream's sources and CC) through the
+    cold tier, rows equal to a cold full-history index solve and the
+    stitched view equal to ``index_ring_view``, the hot chain unconsumed;
+    then the same through a store spilled to disk."""
+    import tempfile
+
+    from repro_torch.core import ColdStore
+    from repro_torch.core.edgemap import index_ring_view
+    from repro_torch.device import to_numpy
+    from repro_torch.engine import QueryBatch, QuerySpec
+    from repro_torch.serve import GraphBatchServer, dispatch_log, serve_batch, sweep
+
+    sync = torch.cuda.synchronize
+    cs = ColdStore(g, tger)
+    mirrors, notes = host_timed(cs, "_mirrors"), host_timed(cs, "note_eviction")
+    server = GraphBatchServer(g, tger, access="index", coldstore=cs)
+    batch_at, base, stride, srcs = ring_batches(np, fields)
+    records, advance_ms = [], []
+
+    def advance(step):
+        batch = batch_at(base + step * stride)
+        n_notes = len(notes)
+        sync()
+        t0 = time.perf_counter()
+        with dispatch_log() as tags:
+            rows = server.advance(batch)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        state = server.state
+        want = ("cold", ["cold:view", "cold:solve"]) if step == 0 else (
+            "delta", ["fused:index"])
+        if (state.last_advance, tags) != want:
+            raise AssertionError(f"[{name}] history ring advance {step}: "
+                                 f"{state.last_advance} {tags}, expected {want}")
+        if cs.watermark != state.lo:
+            raise AssertionError(f"[{name}] history ring advance {step}: the cold "
+                                 f"store's watermark {cs.watermark} is not the ring's "
+                                 f"low watermark {state.lo}")
+        wins = np.asarray(sorted({r.window for r in batch.rows()}), np.int32)
+        col = {tuple(int(x) for x in w): i for i, w in enumerate(wins)}
+        colds = {s: to_numpy(sweep(g, s, wins, tger, plan=state.plan)) for s in srcs}
+        for qi, r in enumerate(batch.groups()[("earliest_arrival", ())]):
+            if not (rows[0][qi] == colds[r.source][col[r.window]]).all():
+                raise AssertionError(f"[{name}] history ring advance {step}: row {qi} "
+                                     f"differs from the cold sweep")
+        return ms, sum(n[0] for n in notes[n_notes:])
+
+    ms, note_ms = advance(0)
+    st = cs.stats()
+    backfill = dict(mirrors_ms=mirrors[0][0], seal_ms=note_ms - mirrors[0][0],
+                    chunks=st["n_chunks"], positions=notes[0][1])
+    log(f"[{name}] cold store backfill (first note, inside the cold start's "
+        f"{ms:.3f} ms): {backfill['positions']} positions, mirrors "
+        f"{backfill['mirrors_ms']:.3f} ms (one device-to-host copy), seal "
+        f"{backfill['seal_ms']:.3f} ms for {backfill['chunks']} chunks")
+    records.append(dict(graph=name, algorithm="coldstore_backfill", cold_start_ms=ms,
+                        **backfill))
+    for step in range(1, RING_ADVANCES + 1):
+        ms, note_ms = advance(step)
+        advance_ms.append(ms)
+        log(f"[{name}] history ring advance {step}: delta ['fused:index'], {ms:.3f} ms, "
+            f"compaction {note_ms:.3f} ms of host (watermark {cs.watermark}, "
+            f"{cs.n_chunks} chunks, {cs.pending_slots} pending); rows equal to cold "
+            f"sweeps")
+        records.append(dict(graph=name, algorithm="history_ring", step=step, ms=ms,
+                            compaction_ms=note_ms, watermark=cs.watermark))
+    st = cs.stats()
+    log(f"[{name}] cold store: {st['n_chunks']} chunks, {st['sealed_slots']} sealed "
+        f"slots, compaction {st['compaction_ratio']:.3f}x, {st['nbytes']} bytes "
+        f"(raw {st['raw_nbytes']})")
+    records.append(dict(graph=name, algorithm="coldstore_stats", **st))
+
+    # -- time travel ----------------------------------------------------------
+    src_np, _, ts_np, te_np = fields
+    t_min = int(ts_np.min())
+    span = int(te_np.max()) - t_min
+    width = span // 50
+    t_wm = int(to_numpy(tger.start_sorted)[cs.watermark])
+    travel = {"cold": (t_min + span // 8, t_min + span // 8 + width),
+              "split": (t_wm - width // 2, t_wm + width // 2)}
+    stitched = {}
+    stitches = host_timed(cs, "ring_stitch")
+    for kind, w in travel.items():
+        hist = QueryBatch.make([QuerySpec.make("earliest_arrival", w, sources=srcs),
+                                QuerySpec.make("cc", w)])
+        hot = server.state
+        sync()
+        t0 = time.perf_counter()
+        with dispatch_log() as tags:
+            res, hstate = serve_batch(g, hist, tger, state=hot, access="index",
+                                      coldstore=cs)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        stitch_ms = stitches[-1][0]
+        if hstate.plan.tier != kind or tags[0] != "cold:stitch" or hot.consumed:
+            raise AssertionError(f"[{name}] time travel {kind}: tier {hstate.plan.tier}, "
+                                 f"{tags}, hot state consumed {hot.consumed}")
+        ref, _ = serve_batch(g, hist, tger, plan=hstate.plan)   # full history, on card
+        for gi, (a, b) in enumerate(zip(res, ref)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[{name}] time travel {kind}: group {gi} differs "
+                                     f"from the cold full-history index solve")
+        ring = index_ring_view(g, tger, hstate.lo, hstate.hi, capacity=hstate.capacity)
+        if not all(torch.equal(a, b) for a, b in zip(hstate.edges, ring)):
+            raise AssertionError(f"[{name}] time travel {kind}: the stitched view "
+                                 f"differs from index_ring_view")
+        stitched[kind] = (hist, hstate.edges, res)
+        log(f"[{name}] time travel {kind} {w}: {ms:.3f} ms ({stitch_ms:.3f} ms stitch on "
+            f"the host, {ms - stitch_ms:.3f} ms view upload and solve), positions "
+            f"[{hstate.lo}, {hstate.hi}) in {hstate.capacity} slots, {tags[0]}; rows "
+            f"equal to the full-history solve, view equal to index_ring_view")
+        records.append(dict(graph=name, algorithm=f"time_travel_{kind}", ms=ms,
+                            stitch_ms=stitch_ms, positions=hstate.hi - hstate.lo,
+                            capacity=hstate.capacity))
+    with dispatch_log() as tags:
+        server.advance(batch_at(base + (RING_ADVANCES + 1) * stride))
+    if server.state.last_advance != "delta" or tags != ["fused:index"]:
+        raise AssertionError(f"[{name}] the hot chain after time travel: "
+                             f"{server.state.last_advance} {tags}")
+    log(f"[{name}] the hot chain after time travel: delta {tags}")
+
+    # -- the same through a store spilled to disk -------------------------------
+    with tempfile.TemporaryDirectory() as spill:
+        cs2 = ColdStore(g, tger, spill_dir=spill)
+        t0 = time.perf_counter()
+        cs2.note_eviction(cs.watermark)
+        seal_ms = (time.perf_counter() - t0) * 1e3
+        for kind, (hist, edges, res) in stitched.items():
+            sync()
+            t0 = time.perf_counter()
+            res2, h2 = serve_batch(g, hist, tger, access="index", coldstore=cs2)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            if not (all(torch.equal(a, b) for a, b in zip(h2.edges, edges))
+                    and all(torch.equal(a, b) for a, b in zip(res2, res))):
+                raise AssertionError(f"[{name}] spilled time travel {kind} differs")
+            records.append(dict(graph=name, algorithm=f"time_travel_{kind}_spilled",
+                                ms=ms))
+            log(f"[{name}] spilled time travel {kind}: {ms:.3f} ms, stitch and rows "
+                f"equal to the in-memory store's")
+        st2 = cs2.stats()
+        if st2["spilled_chunks"] <= 0:
+            raise AssertionError(f"[{name}] the spilled store spilled no chunk")
+        log(f"[{name}] spilled store: {st2['spilled_chunks']} chunks written in "
+            f"{seal_ms:.3f} ms (mirrors included)")
+        records.append(dict(graph=name, algorithm="coldstore_spill", seal_ms=seal_ms,
+                            spilled_chunks=st2["spilled_chunks"]))
+    return records
+
+
+def daemon_tiled(torch, np, name, g, tger, fields, sources, failures, seed):
+    """The daemon on scan/pallas_tiled: run_daemon's tenant mix (width
+    span/80, stride width/8, PageRank at DAEMON_PAGERANK_ITERS) plus one
+    betweenness tenant in a cost class of its own, so two deep classes
+    alternate; DAEMON_TENANTS resident tenants, DAEMON_TICKS ticks with
+    Poisson churn from ``seed``.  Every served tenant's rows against a cold
+    solve of its re-anchored window under its class's plan, the deep
+    round-robin, K1 in every tick (the cheap class) and K3 in every tick
+    that serves PageRank's class; then one tick profiled."""
+    import dataclasses
+
+    from repro_torch.engine import DEFAULT_COST_CLASS, QueryBatch, QuerySpec
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve import GraphBatchServer, dispatch_log
+
+    sync = torch.cuda.synchronize
+    _, _, ts_np, te_np = fields
+    t_max = int(te_np.max())
+    width = max((int(ts_np.max()) - int(ts_np.min())) // 80, 1)
+    stride = max(width // 8, 1)
+    t_base = t_max - (DAEMON_TICKS + 3) * stride
+    rng = np.random.default_rng(seed)
+    server = GraphBatchServer(g, tger, access="scan", backend="pallas_tiled")
+    live = [server.submit(daemon_spec(g.n_vertices, width, i))
+            for i in range(DAEMON_TENANTS)]
+    live.append(server.submit(QuerySpec.make(
+        "betweenness", (0, width), sources=sources[:2], cost_class="betweenness")))
+    n_spawned, last_deep, records, tick_ms = DAEMON_TENANTS, None, [], []
+    for k in range(DAEMON_TICKS):
+        before, solved0 = launch_counts(), server.stats.rows_solved
+        served0 = server.stats.rows_served
+        t_now = t_base + k * stride
+        sync()
+        t0 = time.perf_counter()
+        with dispatch_log() as tags:
+            rep = server.tick(t_now)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        tick_ms.append(ms)
+        after = launch_counts()
+        k1 = after["segment_min_tiles"] - before["segment_min_tiles"]
+        k3 = after["segment_spmm_tiles"] - before["segment_spmm_tiles"]
+        tenants = server.tenants
+        deep = sorted({s.resolved_cost_class for s in tenants.values()}
+                      - {DEFAULT_COST_CLASS})
+        nxt = [c for c in deep if last_deep is None or c > last_deep]
+        want = (DEFAULT_COST_CLASS,) + (((nxt or deep)[0],) if deep else ())
+        if rep.classes_served != want:
+            raise AssertionError(f"[{name}] daemon tick {k}: served "
+                                 f"{rep.classes_served}, the round-robin says {want}")
+        last_deep = want[-1] if deep else last_deep
+        if k1 <= 0 or ("deep" in rep.classes_served and k3 <= 0):
+            raise AssertionError(f"[{name}] daemon tick {k} ({rep.classes_served}): "
+                                 f"K1 {k1}, K3 {k3} launches")
+        for tid, got in rep.results.items():
+            spec = tenants[tid]
+            w = int(spec.window[1]) - int(spec.window[0])
+            inst = dataclasses.replace(spec, window=(t_now - w, t_now))
+            plan = server._class_states[spec.resolved_cost_class].plan
+            res = tuple(torch.as_tensor(x, device=g.device)
+                        for x in (got if isinstance(got, tuple) else (got,)))
+            _batch_rows_vs_cold(torch, np, name, g, tger, QueryBatch.make([inst]),
+                                (res if len(res) > 1 else res[0],), plan, failures,
+                                f"daemon tick {k} tenant {tid}")
+        rows = server.stats.rows_served - served0
+        solved = server.stats.rows_solved - solved0
+        class_ms = {c: t * 1e3 for c, t in zip(
+            rep.classes_served, server.latencies[-len(rep.classes_served):])}
+        log(f"[{name}] daemon tick {k}: {ms:.3f} ms ("
+            + ", ".join(f"{c} {t:.3f}" for c, t in class_ms.items()) + "), "
+            f"classes {list(rep.classes_served)}, "
+            f"{rows} rows served ({solved} solved), {tags.count('rebucket')} rebucket, "
+            f"K1 {k1} / K3 {k3} launches, admitted {len(rep.admitted)} retired "
+            f"{len(rep.retired)}; rows equal to cold solves")
+        records.append(dict(graph=name, algorithm="daemon_tick", step=k, ms=ms,
+                            class_ms=class_ms, rows=rows, solved=solved,
+                            rebuckets=tags.count("rebucket"), k1_launches=k1,
+                            k3_launches=k3))
+        for _ in range(rng.poisson(DAEMON_ARRIVALS)):
+            live.append(server.submit(daemon_spec(g.n_vertices, width, n_spawned)))
+            n_spawned += 1
+        for _ in range(rng.poisson(DAEMON_DEPARTURES)):
+            if len(live) > 1:
+                server.retire(live.pop(int(rng.integers(len(live)))))
+    lat = np.asarray(server.latencies) * 1e3
+    s = server.stats
+    log(f"[{name}] daemon: {s.ticks} ticks, {s.advances} class serves ({s.cold_advances} "
+        f"cold), {s.admissions} admissions / {s.retirements} retirements, per-class "
+        f"latency p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms")
+    records.append(dict(graph=name, algorithm="daemon_summary", ticks=s.ticks,
+                        class_serves=s.advances, cold=s.cold_advances,
+                        admissions=s.admissions, retirements=s.retirements,
+                        class_p50_ms=float(np.percentile(lat, 50)),
+                        class_p99_ms=float(np.percentile(lat, 99))))
+    prof = profile_query(torch, f"[{name}] daemon tick", lambda: server.tick(
+        t_base + DAEMON_TICKS * stride), warm=False)
+    records.append(idle_record(np, name, "daemon_tick_profile", prof, tick_ms,
+                               unit="tick"))
+    return records
+
+
+def daemon_history(torch, np, name, g, tger, fields, seed):
+    """run_daemon with ``--history-chunks 1024`` on an index plan:
+    HISTORY_TICKS ticks of run_daemon's tenants and churn, a pinned CC
+    tenant at t_min + span/8 submitted at tick HISTORY_TICKS // 2; its rows
+    identical on every later tick, equal to a cold full-history index
+    solve, its window never re-anchored, its repeat serve the noop path."""
+    from repro_torch.core import ColdStore
+    from repro_torch.device import to_numpy
+    from repro_torch.engine import QueryBatch, QuerySpec
+    from repro_torch.serve import GraphBatchServer, serve_batch
+
+    sync = torch.cuda.synchronize
+    _, _, ts_np, te_np = fields
+    t_min, t_max = int(ts_np.min()), int(te_np.max())
+    span = int(ts_np.max()) - t_min
+    width = max(span // 80, 1)
+    stride = max(width // 8, 1)
+    t_base = t_max - (HISTORY_TICKS + 2) * stride
+    rng = np.random.default_rng(seed)
+    cs = ColdStore(g, tger, chunk_slots=1024)
+    notes = host_timed(cs, "note_eviction")
+    server = GraphBatchServer(g, tger, access="index", coldstore=cs)
+    live = [server.submit(daemon_spec(g.n_vertices, width, i))
+            for i in range(DAEMON_TENANTS)]
+    n_spawned, records = DAEMON_TENANTS, []
+    hist = (t_min + span // 8, t_min + span // 8 + width)
+    pinned = ref = None
+    for k in range(HISTORY_TICKS):
+        n_notes = len(notes)
+        sync()
+        t0 = time.perf_counter()
+        rep = server.tick(t_base + k * stride)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        note_ms = sum(n[0] for n in notes[n_notes:])
+        msg = ""
+        if pinned is not None:
+            hstate = server._class_states[server.HISTORY_CLASS]
+            got = rep.results[pinned]
+            if ref is None:
+                ref = to_numpy(serve_batch(g, QueryBatch.make([QuerySpec.make("cc", hist)]),
+                                           tger, plan=hstate.plan)[0][0])
+                want_advance = "cold"
+            else:
+                want_advance = "noop"
+            if not ((got == ref).all() and hstate.last_advance == want_advance
+                    and tuple(hstate.group_windows[0][0]) == hist
+                    and hstate.plan.tier == "cold"):
+                raise AssertionError(f"[{name}] history daemon tick {k}: the pinned "
+                                     f"tenant's {hstate.last_advance} serve "
+                                     f"(tier {hstate.plan.tier}) is not the full-history "
+                                     f"solve of {hist}")
+            msg = (f"; pinned CC {hist} {hstate.last_advance} ({hstate.plan.tier} tier), "
+                   f"rows equal to the full-history solve")
+        class_ms = {c: t * 1e3 for c, t in zip(
+            rep.classes_served, server.latencies[-len(rep.classes_served):])}
+        log(f"[{name}] history daemon tick {k}: {ms:.3f} ms (compaction {note_ms:.3f} ms "
+            f"of host; " + ", ".join(f"{c} {t:.3f}" for c, t in class_ms.items())
+            + f"), watermark {cs.watermark}" + msg)
+        records.append(dict(graph=name, algorithm="history_daemon_tick", step=k, ms=ms,
+                            compaction_ms=note_ms, class_ms=class_ms))
+        if k == HISTORY_TICKS // 2:
+            pinned = server.submit(QuerySpec.make("cc", hist, pinned=True))
+            live.append(pinned)
+        for _ in range(rng.poisson(DAEMON_ARRIVALS)):
+            live.append(server.submit(daemon_spec(g.n_vertices, width, n_spawned)))
+            n_spawned += 1
+        for _ in range(rng.poisson(DAEMON_DEPARTURES)):
+            if len(live) > 1:
+                tid = live.pop(int(rng.integers(len(live))))
+                if tid == pinned:   # the pinned tenant stays to be checked
+                    live.append(tid)
+                else:
+                    server.retire(tid)
+    if ref is None:
+        raise AssertionError(f"[{name}] history daemon: the pinned tenant never served")
+    st = cs.stats()
+    log(f"[{name}] history daemon: {server.stats.ticks} ticks, cold store "
+        f"{st['n_chunks']} chunks, watermark {st['watermark']}, compaction "
+        f"{st['compaction_ratio']:.3f}x")
+    return records
+
+
+def history_daemon_path(torch, np, graphs, contexts, failures, seed):
+    """The cold store on the transit index ring with time travel, the
+    daemon on power_law scan/pallas_tiled (K1 and K3), and the daemon with
+    history on transit."""
+    tger, fields, _, _ = contexts["transit"]
+    records = history_ring(torch, np, "transit", graphs["transit"], tger, fields)
+    tger, fields, _, sources = contexts["power_law"]
+    records += daemon_tiled(torch, np, "power_law", graphs["power_law"], tger, fields,
+                            sources, failures, seed)
+    tger, fields, _, _ = contexts["transit"]
+    records += daemon_history(torch, np, "transit", graphs["transit"], tger, fields, seed)
+    return records
 
 
 def graph_context(torch, np, name, g):
@@ -2396,6 +2819,14 @@ def main(argv=None) -> int:
     if ladder_counts["segment_min_tiles"] <= 0:
         raise AssertionError("K1 was never launched in the ladder phase")
     records += ladder_records
+    # -- the cold store and the daemon, counted on their own -------------------
+    reset_launch_counts()
+    records += history_daemon_path(torch, np, graphs, contexts, failures, args.seed)
+    history_counts = launch_counts()
+    log(f"history/daemon phase launches: {history_counts}")
+    for kernel in ("segment_min_tiles", "segment_spmm_tiles"):
+        if history_counts[kernel] <= 0:
+            raise AssertionError(f"{kernel} was never launched in the daemon phase")
     if failures:
         raise AssertionError(f"{len(failures)} checks failed:\n" + "\n".join(failures))
 
@@ -2427,7 +2858,9 @@ def main(argv=None) -> int:
         for G in (cfg.n_heads // cfg.n_kv_heads,)}
     for row in rows:
         row["ladder_launches"] = ladder_counts[row["name"]]
-        row["launches"] = counts[row["name"]] + row["ladder_launches"]
+        row["history_daemon_launches"] = history_counts[row["name"]]
+        row["launches"] = (counts[row["name"]] + row["ladder_launches"]
+                           + row["history_daemon_launches"])
         if row["name"] == "segment_min_tiles":
             row["launches_in_laddered_solves"] = laddered_k1
         if row["launches"] <= 0:

@@ -31,6 +31,7 @@ from repro_torch.kernels.ops import prepare_layout
 
 METHODS = ("scan", "index", "hybrid")
 BACKENDS = ("xla_segment", "pallas_tiled")
+TIERS = ("hot", "cold", "split")
 
 DEFAULT_TILE_V = 512
 DEFAULT_BLOCK_E = 1024
@@ -57,6 +58,12 @@ class AccessPlan:
     n_windows: int = 0               # batched sweep width (0 = single window)
     ring_capacity: int = 0           # ring-view slot count (0 = derive)
     batch_sig: str = ""              # QueryBatch shape signature ("" = not a batch plan)
+    # History tier of the planned window against a ColdStore's hot horizon:
+    # "hot" (the ring serves it), "cold" (entirely below the horizon,
+    # stitched from compacted chunks) or "split" (cold prefix + hot suffix
+    # in one stitched view).  On the cache key, so a tier switch falls cold
+    # without consuming the carried hot state.
+    tier: str = "hot"
     # Frontier-rung ladder cap (engine/frontier.py): 0 disables; a positive
     # value is the largest frontier occupancy (vertex rung) the sparse
     # segments of a laddered fixpoint serve.  Host-level ``*_over_view``
@@ -67,9 +74,8 @@ class AccessPlan:
 
 def _cache_key(method: str, backend: str, budget: int, pvb: int, tile_v: int,
                block_e: int, n_windows: int, ring_capacity: int,
-               batch_sig: str = "", ladder: int = 0) -> str:
-    """The JAX package's key format; the exchange budget is 0 (``x0``) and
-    the tier suffix is absent in the port so far (every plan is "hot")."""
+               batch_sig: str = "", tier: str = "hot", ladder: int = 0) -> str:
+    """The JAX package's key format; the exchange budget is 0 (``x0``)."""
     key = f"{method}/{backend}/b{budget}/pv{pvb}/x0/t{tile_v}x{block_e}"
     if ring_capacity:
         key += f"/r{ring_capacity}"
@@ -77,6 +83,8 @@ def _cache_key(method: str, backend: str, budget: int, pvb: int, tile_v: int,
         key += f"/w{n_windows}"
     if batch_sig:
         key += f"/q{batch_sig}"
+    if tier != "hot":
+        key += f"/T{tier}"
     if ladder:
         key += f"/L{ladder}"
     return key
@@ -100,6 +108,7 @@ def make_plan(
     block_e: int = DEFAULT_BLOCK_E,
     n_windows: int = 0,
     ring_capacity: int = 0,
+    tier: str = "hot",
     ladder: int = 0,
 ) -> AccessPlan:
     """Direct plan constructor (the planner-free path: tests, defaults).
@@ -109,6 +118,8 @@ def make_plan(
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if tier not in TIERS:
+        raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
     if ladder < 0:
         raise ValueError(f"ladder must be >= 0, got {ladder}")
     if layout is not None:
@@ -135,9 +146,10 @@ def make_plan(
         n_edges=int(n_edges),
         cache_key=_cache_key(method, backend, int(budget), int(per_vertex_budget),
                              int(tile_v), int(block_e), int(n_windows),
-                             int(ring_capacity), ladder=int(ladder)),
+                             int(ring_capacity), tier=str(tier), ladder=int(ladder)),
         n_windows=int(n_windows),
         ring_capacity=int(ring_capacity),
+        tier=str(tier),
         ladder=int(ladder),
     )
 
@@ -229,17 +241,22 @@ def plan_query(
     ``windows=[(t0, t1), ...]`` plans a batched sweep over the union window
     whose budgets cover every member window.
 
+    ``coldstore`` (a :class:`~repro_torch.core.coldstore.ColdStore`)
+    classifies the union window against the compacted-history horizon: at
+    or above the store's watermark it plans ``tier="hot"`` as before;
+    entirely below, ``tier="cold"``; straddling, ``tier="split"``.  Both
+    of the latter force the index method with the capacity rung taken
+    from the exact position span, so the stitched view always covers.
+    ``tier=`` overrides the classification (the server passes the tier it
+    computed against its own carried ring's horizon).
+
     ``ladder`` (>= 0) is the frontier-rung cap the plan carries
-    (:attr:`AccessPlan.ladder`, ``/L{N}`` on the cache key).  The cold
-    store's tiers and the distributed exchange budget are not in the port
-    yet and raise ``NotImplementedError``.
+    (:attr:`AccessPlan.ladder`, ``/L{N}`` on the cache key).  The
+    distributed exchange budget is not in the port yet and raises
+    ``NotImplementedError``.
     """
     if ladder < 0:
         raise ValueError(f"ladder must be >= 0, got {ladder}")
-    if coldstore is not None or tier not in (None, "hot"):
-        raise NotImplementedError(
-            "coldstore= and tier != 'hot' (the cold store) are ROADMAP.md "
-            "Queue 1 item 12")
     if exchange_budget:
         raise NotImplementedError(
             "exchange_budget > 0 (the distributed exchange) is ROADMAP.md "
@@ -296,6 +313,27 @@ def plan_query(
             budget = max(budget, rung(max(p_hi - p_lo, 1)))
             ring_capacity = budget
 
+    # ---- history-tier classification ----------------------------------------
+    if tier is None:
+        tier = "hot"
+        if (coldstore is not None and tger is not None
+                and access in ("auto", "index")):
+            tier = coldstore.classify(win)
+    if tier not in TIERS:
+        raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
+    if tier != "hot":
+        if tger is None:
+            raise ValueError("tier planning requires a TGER index")
+        if access not in ("auto", "index"):
+            raise ValueError(
+                f"tier={tier!r} (below-horizon) windows require the index "
+                f"method: the cold store stitches a classic index ring "
+                f"view; got access={access!r}")
+        p_lo, p_hi = window_positions_host(tger, win)
+        method = "index"
+        budget = max(budget, rung(max(p_hi - p_lo, 16)))
+        ring_capacity = budget
+
     if backend == "pallas_tiled" and method != "scan":
         backend = "xla_segment"  # tile layout is per-graph static: scan only
 
@@ -306,7 +344,8 @@ def plan_query(
         budget=budget, per_vertex_budget=per_vertex,
         layout=layout, n_edges=n_edges if layout is not None else 0,
         tile_v=tile_v, block_e=block_e,
-        n_windows=n_windows, ring_capacity=ring_capacity, ladder=int(ladder),
+        n_windows=n_windows, ring_capacity=ring_capacity, tier=tier,
+        ladder=int(ladder),
     )
 
 
@@ -329,24 +368,23 @@ def plan_batch(
     structure and row counts, never sources or window bounds, so a
     shape-stable tenant stream keeps one plan.
 
-    ``shards`` (a query mesh) and ``bucketed`` (the admission ladder) are
-    not in the port yet and raise ``NotImplementedError``."""
+    ``bucketed`` keys the signature on the BUCKETED per-group row
+    capacities (the admission ladder) instead of exact counts, so tenant
+    churn inside a bucket replans to the same cache key.  ``shards`` (a
+    query mesh) is not in the port yet and raises
+    ``NotImplementedError``."""
     if shards is not None:
         raise NotImplementedError(
             "plan_batch(shards=...) (sharded serving) is ROADMAP.md Queue 1 item 14")
-    if bucketed:
-        raise NotImplementedError(
-            "plan_batch(bucketed=True) (bucketed admission) is ROADMAP.md "
-            "Queue 1 item 13")
     plan = plan_query(g, tger, windows=batch.windows(), model=model,
                       access=access, backend=backend, **kw)
-    sig = batch.signature()
+    sig = batch.signature(bucketed=bucketed)
     return dataclasses.replace(
         plan, batch_sig=sig,
         cache_key=_cache_key(plan.method, plan.backend, plan.budget,
                              plan.per_vertex_budget, plan.tile_v, plan.block_e,
                              plan.n_windows, plan.ring_capacity, sig,
-                             ladder=plan.ladder))
+                             tier=plan.tier, ladder=plan.ladder))
 
 
 def decision_for(
@@ -374,4 +412,5 @@ __all__ = [
     "rung",
     "METHODS",
     "BACKENDS",
+    "TIERS",
 ]

@@ -1,14 +1,27 @@
-"""Serve a language model with continuous batching (the LM mode of
-``repro/launch/serve.py``):
+"""Serving driver: continuous batching of a (reduced-config) LM, or
+sliding-window temporal-graph serving (the port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch smollm-135m]
         [--requests 16] [--slots 4] [--max-new 12] [--prompt-len 16]
         [--max-seq 64] [--seed 0] [--device cpu]
 
-As in the reference it serves the architecture's reduced config
-(``smoke_cfg``) with random weights from ``--seed``, on the first CUDA card
-unless ``--device`` names another; without a card and without
-``--device`` it raises.  The graph and daemon modes are not ported yet.
+    # graph mode: multi-tenant QueryBatch advances on a synthetic graph;
+    # --history-chunks N attaches a cold store and answers a time-travel
+    # query over an evicted window at the end
+    PYTHONPATH=src python -m repro_torch.launch.serve --graph --tenants 16 \
+        --advances 24 [--history-chunks 1024] [--device cpu]
+
+    # daemon mode: a tick loop with Poisson tenant arrivals and departures,
+    # bucketed admission, cost-class round-robin; --history-chunks N admits
+    # a pinned historical tenant mid-run
+    PYTHONPATH=src python -m repro_torch.launch.serve --graph --daemon \
+        --ticks 40 --arrival-rate 0.5 --depart-rate 0.25 [--device cpu]
+
+As in the reference the LM mode serves the architecture's reduced config
+(``smoke_cfg``) with random weights from ``--seed``.  Everything runs on
+the first CUDA card unless ``--device`` names another; without a card and
+without ``--device`` it raises.  ``--shard-queries`` / ``--shard-edges``
+(sharded serving) are not in the port yet.
 """
 from __future__ import annotations
 
@@ -19,24 +32,174 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_numpy
 from repro_torch.models.transformer import init_lm
-from repro_torch.serve.engine import EngineStats, Request, ServeEngine
+from repro_torch.serve.engine import (
+    EngineStats,
+    GraphBatchServer,
+    GraphServeStats,
+    Request,
+    ServeEngine,
+)
+
+GRAPH_ALGORITHMS = ("earliest_arrival", "reachability", "bfs", "cc", "pagerank")
 
 
-def main(argv=None) -> EngineStats:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="smollm-135m")
-    ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--max-new", type=int, default=12)
-    ap.add_argument("--prompt-len", type=int, default=16)
-    ap.add_argument("--max-seq", type=int, default=64)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: the first CUDA card)")
-    args = ap.parse_args(argv)
+def _graph(args):
+    """The synthetic power-law graph and its TGER, with the time span's
+    minimum start, span and maximum end."""
+    from repro_torch.core.tger import build_tger
+    from repro_torch.data.generators import power_law_temporal_graph
 
+    g = power_law_temporal_graph(args.n_vertices, args.n_edges, seed=args.seed,
+                                 device=resolve_device(args.device))
+    idx = build_tger(g, degree_cutoff=max(args.n_edges // 800, 16))
+    ts = to_numpy(g.t_start)
+    t_max = int(to_numpy(g.t_end).max())
+    return g, idx, int(ts.min()), int(ts.max() - ts.min()), t_max
+
+
+def _coldstore(args, g, idx):
+    if not args.history_chunks:
+        return None
+    from repro_torch.core.coldstore import ColdStore
+
+    return ColdStore(g, idx, chunk_slots=args.history_chunks,
+                     spill_dir=args.history_spill_dir)
+
+
+def run_graph(args) -> GraphServeStats:
+    """Graph mode: ``args.advances`` sliding advances of a tenant batch on
+    an index plan; with a cold store, then one time-travel batch over an
+    evicted window.  Prints the reference's summary lines and returns the
+    server's stats."""
+    from repro_torch.engine import QueryBatch, QuerySpec
+
+    g, idx, t_min, span, t_max = _graph(args)
+    width = max(span // 80, 1)
+    stride = max(width // 8, 1)
+    base0 = t_max - (args.advances + 2) * stride
+
+    def make_batch(base):
+        specs = []
+        for i in range(args.tenants):
+            alg = GRAPH_ALGORITHMS[i % len(GRAPH_ALGORITHMS)]
+            off = (i % 2) * stride
+            win = (int(base - off - width), int(base - off))
+            if alg == "cc":
+                specs.append(QuerySpec.make(alg, win))
+            elif alg == "pagerank":
+                specs.append(QuerySpec.make(alg, win, n_iters=8))
+            else:
+                specs.append(QuerySpec.make(
+                    alg, win, sources=(7 * i) % args.n_vertices))
+        return QueryBatch.make(specs)
+
+    coldstore = _coldstore(args, g, idx)
+    server = GraphBatchServer(g, idx, access="index", coldstore=coldstore)
+    t0 = time.perf_counter()
+    for k in range(args.advances):
+        server.advance(make_batch(base0 + k * stride))
+    dt = time.perf_counter() - t0
+    s = server.stats
+    rate = s.rows_served / max(dt, 1e-9)
+    print(
+        f"served {s.rows_served} query rows ({s.rows_solved} solved after "
+        f"dedup) in {s.advances} advances ({s.cold_advances} cold, "
+        f"{s.fused_dispatches} fused dispatches) on {server.devices} "
+        f"device(s), {dt:.2f}s ({rate:.1f} rows/s)"
+    )
+    if coldstore is not None:
+        # time travel: a window the sweep evicted long ago serves from the
+        # compacted cold tier, not a full-history rebuild
+        hist_base = t_min + span // 8 + width
+        hist = QueryBatch.make([
+            QuerySpec.make("earliest_arrival", (hist_base - width, hist_base),
+                           sources=1),
+            QuerySpec.make("cc", (hist_base - width, hist_base)),
+        ])
+        t0 = time.perf_counter()
+        server.advance(hist)
+        dt_hist = time.perf_counter() - t0
+        st = coldstore.stats()
+        print(
+            f"history: tier={server.state.plan.tier!r} time-travel answered in "
+            f"{1e3 * dt_hist:.1f} ms; cold store {st['n_chunks']} chunks "
+            f"({st['sealed_slots']} slots sealed, watermark "
+            f"{st['watermark']}), compaction {st['compaction_ratio']:.2f}x"
+        )
+    return server.stats
+
+
+def run_daemon(args) -> GraphServeStats:
+    """Daemon mode: Poisson tenant arrivals and departures over the five
+    cost-classed algorithms, admission at tick boundaries, per-class
+    bucketed chains; with a cold store, a pinned historical tenant arrives
+    mid-run.  Prints the reference's summary lines and returns the
+    server's stats."""
+    from repro_torch.engine import QuerySpec
+
+    g, idx, t_min, span, t_max = _graph(args)
+    width = max(span // 80, 1)
+    stride = max(width // 8, 1)
+    t_base = t_max - (args.ticks + 2) * stride
+    rng = np.random.default_rng(args.seed)
+
+    def fresh_spec(i: int) -> QuerySpec:
+        alg = GRAPH_ALGORITHMS[i % len(GRAPH_ALGORITHMS)]
+        w = (0, width)
+        if alg == "cc":
+            return QuerySpec.make(alg, w)
+        if alg == "pagerank":
+            return QuerySpec.make(alg, w, n_iters=8)
+        return QuerySpec.make(alg, w, sources=(7 * i) % args.n_vertices)
+
+    coldstore = _coldstore(args, g, idx)
+    server = GraphBatchServer(g, idx, access="index", coldstore=coldstore)
+    live: list = [server.submit(fresh_spec(i)) for i in range(args.tenants)]
+    n_spawned = args.tenants
+
+    t0 = time.perf_counter()
+    for k in range(args.ticks):
+        server.tick(t_base + k * stride)
+        if coldstore is not None and k == args.ticks // 2:
+            # mid-run, a pinned time-travel tenant arrives: its window is
+            # fixed in the evicted past, served verbatim via the cold tier
+            hist_lo = t_min + span // 8
+            live.append(server.submit(QuerySpec.make(
+                "cc", (hist_lo, hist_lo + width), pinned=True)))
+            n_spawned += 1
+        for _ in range(rng.poisson(args.arrival_rate)):
+            live.append(server.submit(fresh_spec(n_spawned)))
+            n_spawned += 1
+        for _ in range(rng.poisson(args.depart_rate)):
+            if len(live) > 1:
+                server.retire(live.pop(rng.integers(len(live))))
+    dt = time.perf_counter() - t0
+
+    s = server.stats
+    lat = np.asarray(server.latencies)
+    print(
+        f"daemon: {s.ticks} ticks, {s.advances} class advances "
+        f"({s.cold_advances} cold, {s.fused_dispatches} fused), "
+        f"{s.admissions} admissions / {s.retirements} retirements, "
+        f"{s.rows_served} rows served in {dt:.2f}s"
+    )
+    if coldstore is not None:
+        st = coldstore.stats()
+        print(
+            f"cold store: {st['n_chunks']} chunks, watermark "
+            f"{st['watermark']}, compaction {st['compaction_ratio']:.2f}x"
+        )
+    print(
+        f"per-advance latency: p50 {1e3 * np.percentile(lat, 50):.2f} ms, "
+        f"p99 {1e3 * np.percentile(lat, 99):.2f} ms "
+        f"({len(server.tenants)} tenants live at exit)"
+    )
+    return server.stats
+
+
+def run_lm(args) -> EngineStats:
     cfg = get_arch(args.arch).smoke_cfg
     device = resolve_device(args.device)
     gen = torch.Generator(device=device)
@@ -59,6 +222,64 @@ def main(argv=None) -> EngineStats:
         f"on {engine.model.device}"
     )
     return stats
+
+
+def main(argv=None):
+    """Parse ``argv`` and run the chosen mode; returns its stats
+    (``EngineStats`` for the LM, ``GraphServeStats`` for --graph/--daemon)."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-seq", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the first CUDA card)")
+    ap.add_argument("--graph", action="store_true",
+                    help="serve temporal-graph query batches instead of LM")
+    ap.add_argument("--tenants", type=int, default=16)
+    ap.add_argument("--advances", type=int, default=24)
+    ap.add_argument("--n-vertices", type=int, default=2_000)
+    ap.add_argument("--n-edges", type=int, default=50_000)
+    ap.add_argument("--shard-queries", type=int, default=None,
+                    help="shard the tenant axis over N devices (not in the port)")
+    ap.add_argument("--shard-edges", type=int, default=None,
+                    help="also shard the ring's slot axis over E devices "
+                         "(not in the port)")
+    ap.add_argument("--history-chunks", type=int, default=None,
+                    help="attach a cold store compacting evicted ring "
+                         "slots into chunks of N slots; graph mode then "
+                         "answers a time-travel query over an evicted "
+                         "window, daemon mode admits a pinned historical "
+                         "tenant mid-run")
+    ap.add_argument("--history-spill-dir", default=None, metavar="DIR",
+                    help="spill sealed cold-store chunk payloads to "
+                         "memmap-backed files under DIR (needs "
+                         "--history-chunks); decodes are bit-identical, "
+                         "RAM holds only the chunk directory")
+    ap.add_argument("--daemon", action="store_true",
+                    help="graph daemon mode: tick loop with Poisson churn")
+    ap.add_argument("--ticks", type=int, default=40)
+    ap.add_argument("--arrival-rate", type=float, default=0.5,
+                    help="Poisson tenant arrivals per tick")
+    ap.add_argument("--depart-rate", type=float, default=0.25,
+                    help="Poisson tenant departures per tick")
+    args = ap.parse_args(argv)
+
+    if args.history_spill_dir and not args.history_chunks:
+        ap.error("--history-spill-dir needs --history-chunks (it spills "
+                 "the cold store's sealed chunks)")
+    if args.shard_queries or args.shard_edges:
+        raise NotImplementedError(
+            "--shard-queries / --shard-edges (sharded serving) are ROADMAP.md "
+            "Queue 1 item 14")
+    if args.daemon:
+        return run_daemon(args)
+    if args.graph:
+        return run_graph(args)
+    return run_lm(args)
 
 
 if __name__ == "__main__":

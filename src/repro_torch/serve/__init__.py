@@ -1,4 +1,5 @@
-"""Window-query sweeps and multi-tenant incremental serving."""
+"""Window-query sweeps, multi-tenant incremental serving and the graph
+serving daemon."""
 from repro_torch.serve.window_sweep import (  # noqa: F401
     ALGORITHMS,
     QueryBatch,
@@ -10,4 +11,11 @@ from repro_torch.serve.window_sweep import (  # noqa: F401
     sweep,
     sweep_incremental,
     sweep_looped,
+)
+from repro_torch.core.coldstore import ColdStore  # noqa: F401
+from repro_torch.serve.engine import (  # noqa: F401
+    GraphBatchServer,
+    GraphServeStats,
+    ServeEngine,
+    TickReport,
 )

@@ -23,6 +23,13 @@ write is the donation: a state passed to an advance is consumed
 
 Integer-label rows are bit-identical to the cold ``sweep`` under the same
 plan; float rows (pagerank, betweenness) match up to summation order.
+
+``admission="bucketed"`` pads every group's rows to a power-of-two bucket
+and carries row assignment as int32 gather maps, so tenant churn inside a
+bucket keeps every shape (the serving daemon's mode).  ``coldstore=`` seals
+the positions an index ring evicts into a :class:`~repro_torch.core.
+coldstore.ColdStore` and serves windows below the hot horizon from it (the
+cold tier), bit-identical to a full-history index solve.
 """
 from __future__ import annotations
 
@@ -78,7 +85,12 @@ from repro_torch.engine.plan import (
     plan_batch,
     plan_query,
 )
-from repro_torch.engine.queries import QueryBatch, QuerySpec, dedup_rows
+from repro_torch.engine.queries import (
+    QueryBatch,
+    QuerySpec,
+    bucket_capacity,
+    dedup_rows,
+)
 
 # ---------------------------------------------------------------------------
 # the algorithm dispatch table
@@ -449,6 +461,10 @@ class SweepState:
     last_rounds: Any = None      # EA groups' round counts (host ints)
     n_solved_unique: int = 0     # rows that ran a fixpoint after dedup
     consumed: bool = False       # a later advance took this state's buffers
+    group_caps: tuple = ()       # per-group BUCKETED row capacity (empty =
+                                 # exact-shape schedule mode)
+    last_schedule: Any = None    # schedule of the last fused advance (None
+                                 # after cold/noop/reorder)
 
     @property
     def algorithm(self) -> str:
@@ -506,17 +522,42 @@ def _gather_solved(sub, solve_map, n_outputs: int):
 
 
 def _solve_groups(edges, plan, n_vertices, schedule, prev_results,
-                  new_windows, new_sources, inits):
+                  new_windows, new_sources, inits, maps=None):
     """Every group's solve (of only its genuinely new rows) and row
     assembly over the just-advanced view.  ``schedule`` holds (algorithm,
     params, row_map, new_pos, solve_map) per group; ``solve_map`` (None =
     identity) fans the deduplicated solved rows out onto the new rows.
     The solves are dense: in the JAX package this advance is one traced
-    program, where the ladder never engages."""
+    program, where the ladder never engages.
+
+    A group may instead carry a BUCKETED entry ``(algorithm, params,
+    "bucket", cap, n_new_cap)`` (the admission ladder): its row map is a
+    dynamic int32[cap] tensor in ``maps`` rather than a schedule field, so
+    the schedule keys only the padded capacities and a tenant admitted or
+    retired inside the bucket changes no shape.  Assembly is one gather
+    over the concatenated (previous buffer ‖ freshly solved) row pool; pad
+    slots replicate the last real row."""
     out, rounds_out = [], []
-    for gi, (algorithm, params, row_map, new_pos, solve_map) in enumerate(schedule):
+    for gi, entry_s in enumerate(schedule):
+        algorithm, params = entry_s[0], entry_s[1]
         entry = _ALGOS[algorithm]
         prev = prev_results[gi]
+        if entry_s[2] == "bucket":
+            prevs = prev if isinstance(prev, tuple) else (prev,)
+            if entry_s[4]:
+                sub, rounds = entry.solve(
+                    edges, new_windows[gi], new_sources[gi], plan, n_vertices,
+                    inits[gi], dict(params), False)
+                subs = sub if isinstance(sub, tuple) else (sub,)
+                pool = subs if prev is None else tuple(
+                    torch.cat([p, s]) for p, s in zip(prevs, subs))
+            else:
+                rounds, pool = -1, prevs
+            picked = tuple(p[maps[gi]] for p in pool)
+            out.append(picked[0] if entry.n_outputs == 1 else picked)
+            rounds_out.append(rounds)
+            continue
+        row_map, new_pos, solve_map = entry_s[2], entry_s[3], entry_s[4]
         if new_pos:
             sub, rounds = entry.solve(
                 edges, new_windows[gi], new_sources[gi], plan, n_vertices,
@@ -605,12 +646,27 @@ def _advance(
     plan_arg: Optional[AccessPlan],
     plan_builder: Callable[[], AccessPlan],
     warm_start: bool,
+    bucketed: bool = False,
+    bucket_headroom: int = 0,
+    coldstore=None,
+    tier: str = "hot",
 ):
     """The incremental advance shared by ``serve_batch`` and
     ``sweep_incremental``: match every group's rows against the carried
     state, then answer everything in one advance (ring delta + per-group
     solves + row assembly), falling back to a cold plan + build + solve only
-    when coverage forces it."""
+    when coverage forces it.
+
+    ``bucketed=True`` is the admission-ladder mode the serving daemon
+    drives: every group's result buffer is PADDED to its power-of-two
+    :func:`~repro_torch.engine.queries.bucket_capacity` (pad slots
+    replicate the last real row) and the schedule carries only the padded
+    capacities; row assignment travels as dynamic int32[cap] gather maps.
+
+    ``coldstore`` seals the positions an index ring evicts (after the
+    advance's device work is enqueued); ``tier`` other than ``"hot"``
+    stitches the view from the store instead of building it on the
+    device."""
     if state is not None and state.consumed:
         raise RuntimeError(
             "this SweepState was consumed by an earlier advance: its ring "
@@ -623,8 +679,19 @@ def _advance(
     n_rows_total = sum(len(s) for _, s, _ in groups)
     dev = g.device
 
+    caps: tuple = ()
+    if bucketed:
+        prev_caps = ({} if state is None
+                     else dict(zip(state.group_keys, state.group_caps)))
+        # the headroom (the daemon's arrival forecast) sizes the bucket for
+        # the rows expected next tick; the 4x shrink hysteresis applies on top
+        caps = tuple(
+            bucket_capacity(len(s) + max(0, int(bucket_headroom)),
+                            prev_caps.get(key, 0))
+            for key, s, _ in groups)
+
     def freeze(plan, edges, lo, hi, capacity, results, advance, n_solved,
-               warm_applied, rounds, n_unique=0):
+               warm_applied, rounds, n_unique=0, last_schedule=None):
         return SweepState(
             group_keys=tuple(k for k, _, _ in groups),
             group_sources=tuple(tuple(s) for _, s, _ in groups),
@@ -633,7 +700,8 @@ def _advance(
             capacity=capacity, results=results, graph_ref=g.src,
             last_advance=advance, n_solved=n_solved, warm_applied=warm_applied,
             last_rounds=rounds[0] if len(rounds) == 1 else tuple(rounds),
-            n_solved_unique=n_unique,
+            n_solved_unique=n_unique, group_caps=caps,
+            last_schedule=last_schedule,
         )
 
     def cold(prev_plan=None):
@@ -643,10 +711,27 @@ def _advance(
             p = prev_plan
         if p is None:
             p = plan_builder()
-        _note("cold:view")
-        edges, lo, hi, capacity = ring_view_for_plan(g, tger, union, p)
+        if tier != "hot":
+            # the view is stitched on the host from the cold store's chunks
+            # (plus the mirrors' pending tail and a split window's hot
+            # suffix) in index-ring slot order, so every solve below equals
+            # a cold index build under the same plan; the carried hot ring
+            # is never consumed
+            _note("cold:stitch")
+            capacity = p.ring_capacity or p.budget
+            fields_np, mask_np, lo, hi = coldstore.ring_stitch(union, capacity)
+            edges = EdgeView(*(torch.from_numpy(a).to(dev) for a in fields_np),
+                             torch.from_numpy(mask_np).to(dev))
+        else:
+            _note("cold:view")
+            edges, lo, hi, capacity = ring_view_for_plan(g, tger, union, p)
+            if coldstore is not None and p.method == "index" and lo > 0:
+                # everything below the fresh ring's low watermark is
+                # history: seal it (host work; the first note backfills
+                # from position 0)
+                coldstore.note_eviction(lo)
         results, rounds, n_unique = [], [], 0
-        for key, sources, wins in groups:
+        for gi, (key, sources, wins) in enumerate(groups):
             entry = _ALGOS[key[0]]
             _note("cold:solve")
             u_sources, u_windows, inverse = dedup_rows(sources, wins)
@@ -654,8 +739,13 @@ def _advance(
             src_dev = None if entry.source_free else _sources_tensor(u_sources, dev)
             res, rnd = entry.solve(edges, u_windows, src_dev, p, g.n_vertices,
                                    None, dict(key[1]), ladder_eligible(p))
-            if tuple(inverse) != tuple(range(len(u_sources))):
-                res = _gather_solved(res, inverse, entry.n_outputs)
+            out_map = tuple(inverse)
+            if bucketed:
+                # pad to the bucket capacity with the last real row (a pad
+                # row IS a real row; the daemon slices it off)
+                out_map += (out_map[-1],) * (caps[gi] - len(out_map))
+            if out_map != tuple(range(len(u_sources))):
+                res = _gather_solved(res, out_map, entry.n_outputs)
             results.append(res)
             rounds.append(rnd)
         return tuple(results), freeze(
@@ -689,15 +779,27 @@ def _advance(
         if identical:
             return state.results, dataclasses.replace(
                 state, last_advance="noop", n_solved=0, warm_applied=False,
-                n_solved_unique=0)
+                n_solved_unique=0, last_schedule=None)
+        # a permutation of answered rows (bucketed: padded back out to the
+        # possibly hysteresis-shrunk bucket capacity)
         _note("reorder")
-        results = tuple(
-            _gather_rows(state.results[prev_idx[key]], tuple(ms),
-                         _ALGOS[key[0]].n_outputs)
-            for (key, _, _), ms in zip(groups, matched))
+        results = []
+        for gi, ((key, _, _), ms) in enumerate(zip(groups, matched)):
+            mm = tuple(ms)
+            if bucketed:
+                mm += (mm[-1],) * (caps[gi] - len(mm))
+            results.append(_gather_rows(state.results[prev_idx[key]], mm,
+                                        _ALGOS[key[0]].n_outputs))
+        results = tuple(results)
         return results, freeze(
             p, state.edges, state.lo, state.hi, state.capacity, results,
             "reorder", 0, False, [-1] * len(groups))
+
+    if tier != "hot" or p.tier != "hot":
+        # tier serves never delta-advance (historical windows do not slide)
+        # and a tier switch never consumes the carried hot state: fall cold,
+        # keeping the previous plan only within its own tier
+        return cold(prev_plan=p if p.tier == tier else None)
 
     def build_schedule():
         schedule, prev_results, new_windows, new_sources, inits = [], [], [], [], []
@@ -736,20 +838,79 @@ def _advance(
         if any_warm:
             _note("warm-init")
         return (tuple(schedule), tuple(prev_results), tuple(new_windows),
-                tuple(new_sources), tuple(inits), any_warm, n_unique)
+                tuple(new_sources), tuple(inits), None, any_warm, n_unique)
+
+    def build_schedule_bucketed():
+        """The admission-ladder schedule: each entry is ``(algorithm,
+        params, "bucket", cap, K)``, only the padded bucket capacity and the
+        solve capacity static.  Row assignment travels as a dynamic
+        int32[cap] gather map over the (previous padded buffer ‖ freshly
+        solved rows) pool, so admitting or retiring a tenant inside the
+        bucket keeps every shape."""
+        schedule, prev_results, new_windows, new_sources, inits, maps = \
+            [], [], [], [], [], []
+        n_unique = 0
+        for gi, ((key, sources, wins), ms) in enumerate(zip(groups, matched)):
+            entry = _ALGOS[key[0]]
+            cap = caps[gi]
+            pi = prev_idx.get(key)
+            prev_res = None if pi is None else state.results[pi]
+            if pi is not None and state.group_caps[pi] != cap:
+                # bucket transition: re-pad the carried buffer to the NEW
+                # capacity (one gather, only when the bucket itself changes)
+                needed = sorted({m for m in ms if m is not None}) or [0]
+                remap = {m: j for j, m in enumerate(needed)}
+                rm = tuple(needed) + (needed[-1],) * (cap - len(needed))
+                _note("rebucket")
+                prev_res = _gather_rows(prev_res, rm, entry.n_outputs)
+                ms = [None if m is None else remap[m] for m in ms]
+            new_idx = [i for i, m in enumerate(ms) if m is None]
+            inverse: tuple = ()
+            K = 0
+            if new_idx:
+                u_sources, u_windows, inverse = dedup_rows(
+                    [sources[i] for i in new_idx], wins[new_idx])
+                m_u = len(u_sources)
+                n_unique += m_u
+                # the new-row solve pads to the FULL bucket capacity, so
+                # churn inside the bucket never changes the solve's shape
+                K = cap
+                if K != m_u:
+                    pad_map = list(range(m_u)) + [m_u - 1] * (K - m_u)
+                    u_windows = u_windows[pad_map]
+                    u_sources = [u_sources[j] for j in pad_map]
+                new_windows.append(np.ascontiguousarray(u_windows))
+                new_sources.append(
+                    None if entry.source_free else _sources_tensor(u_sources, dev))
+            else:
+                new_windows.append(None)
+                new_sources.append(None)
+            inits.append(None)      # warm starts are refused in bucketed mode
+            offset = 0 if pi is None else cap
+            pos = {i: j for j, i in enumerate(new_idx)}
+            sel = [m if m is not None else offset + inverse[pos[i]]
+                   for i, m in enumerate(ms)]
+            sel.extend([sel[-1]] * (cap - len(sel)))
+            maps.append(torch.as_tensor(np.asarray(sel, np.int32), device=dev))
+            schedule.append((key[0], key[1], "bucket", cap, K))
+            prev_results.append(prev_res)
+        return (tuple(schedule), tuple(prev_results), tuple(new_windows),
+                tuple(new_sources), tuple(inits), tuple(maps), False, n_unique)
+
+    built = build_schedule_bucketed if bucketed else build_schedule
 
     if p.method == "scan":
-        (schedule, prev_results, new_windows, new_sources, inits, any_warm,
-         n_unique) = build_schedule()
+        (schedule, prev_results, new_windows, new_sources, inits, maps,
+         any_warm, n_unique) = built()
         _note("fused:scan")
         state.consumed = True
         # the scan "ring" is the graph's own arrays: solved over, never written
         results, rounds = _solve_groups(state.edges, p, g.n_vertices, schedule,
                                         prev_results, new_windows, new_sources,
-                                        inits)
+                                        inits, maps)
         return results, freeze(
             p, state.edges, -1, -1, 0, results, "reuse", total_new, any_warm,
-            rounds, n_unique=n_unique)
+            rounds, n_unique=n_unique, last_schedule=schedule)
 
     if p.method in ("index", "hybrid") and tger is not None:
         positions = (window_positions_host if p.method == "index"
@@ -770,8 +931,8 @@ def _advance(
         fields = (g.src, g.dst, g.t_start, g.t_end, g.weight)
         perm = (tger.perm_by_start if p.method == "index"
                 else tger.heavy_perm_by_start)
-        (schedule, prev_results, new_windows, new_sources, inits, any_warm,
-         n_unique) = build_schedule()
+        (schedule, prev_results, new_windows, new_sources, inits, maps,
+         any_warm, n_unique) = built()
         _note(f"fused:{p.method}")
         state.consumed = True
         # the entering positions are written into the carried ring in place
@@ -779,10 +940,15 @@ def _advance(
                                         lo_new, hi_new, capacity=C)
         results, rounds = _solve_groups(edges, p, g.n_vertices, schedule,
                                         prev_results, new_windows, new_sources,
-                                        inits)
+                                        inits, maps)
+        if coldstore is not None and p.method == "index":
+            # compaction hook: after the advance's device work is enqueued,
+            # the positions this slide evicted ([state.lo, lo_new)) seal on
+            # the host from the store's own mirrors
+            coldstore.note_eviction(lo_new)
         return results, freeze(
             p, edges, lo_new, hi_new, C, results, "delta", total_new, any_warm,
-            rounds, n_unique=n_unique)
+            rounds, n_unique=n_unique, last_schedule=schedule)
 
     return cold()
 
@@ -791,22 +957,37 @@ def _advance(
 # public entry points
 # ---------------------------------------------------------------------------
 
-def _not_ported(mesh, admission, bucket_headroom, coldstore) -> None:
-    """Options of the JAX package's server that the port does not have yet;
-    raised before any state is touched."""
-    if admission not in (None, "bucketed"):
-        raise ValueError(f"unknown admission mode {admission!r}; supported: "
-                         f"None (and 'bucketed', not in the port yet)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "serve_batch(mesh=...) (sharded serving) is ROADMAP.md Queue 1 item 14")
-    if admission == "bucketed" or bucket_headroom:
-        raise NotImplementedError(
-            "admission='bucketed' and bucket_headroom (bucketed admission) are "
-            "ROADMAP.md Queue 1 item 13")
-    if coldstore is not None:
-        raise NotImplementedError(
-            "coldstore= (tiered history) is ROADMAP.md Queue 1 item 12")
+_SERVE_COMBOS = (
+    "supported serve_batch combinations: admission None | 'bucketed'; "
+    "warm_start=True only with admission=None; coldstore= (tiered history) "
+    "requires a TGER, and a below-horizon (cold/split tier) batch "
+    "additionally requires admission=None and warm_start=False; mesh= is "
+    "not in the port (ROADMAP.md Queue 1 item 14)"
+)
+
+
+def _history_tier(tger, union, state, coldstore, plan_arg, access) -> str:
+    """Classify the union window against the cold store's hot horizon.
+    ``"hot"`` when tiering is off: no store, or a scan/hybrid access path
+    (a scan view is never evicted; the hybrid ring re-rungs on coverage
+    lapse), so only index plans route below the horizon.  A compatible
+    carried hot index state's OWN ring low watermark is the horizon: a
+    forward-sliding chain stays hot even after another chain pushed the
+    store's global watermark past its lo."""
+    if coldstore is None:
+        return "hot"
+    if tger is None:
+        raise ValueError(
+            "coldstore serving requires a TGER index (the time-first "
+            "permutation is the compaction domain); " + _SERVE_COMBOS)
+    if access in ("scan", "hybrid") or (plan_arg is not None
+                                        and plan_arg.method != "index"):
+        return "hot"
+    hot_lo = coldstore.watermark
+    if (state is not None and state.lo >= 0
+            and state.plan.method == "index" and state.plan.tier == "hot"):
+        hot_lo = state.lo
+    return coldstore.classify(union, hot_lo=hot_lo)
 
 
 def serve_batch(
@@ -838,19 +1019,50 @@ def serve_batch(
     corresponding cold single-query sweeps under the same plan; float rows
     match allclose.
 
-    A state from another graph, or with an incompatible explicit ``plan``,
-    falls back to a cold serve and is not consumed.  ``warm_start=True``
-    opts into the containment warm starts (EA and cc exact, reachability
-    sound, refused elsewhere).
+    A state from another graph, from the other admission mode, or with an
+    incompatible explicit ``plan`` falls back to a cold serve and is not
+    consumed.  ``warm_start=True`` opts into the containment warm starts
+    (EA and cc exact, reachability sound, refused elsewhere).
+
+    ``admission="bucketed"`` is the admission ladder the serving daemon
+    drives: every group's result buffer is PADDED to its power-of-two
+    :func:`~repro_torch.engine.queries.bucket_capacity` (slice each group
+    to ``len(batch.groups()[key])`` rows before reading), resident groups
+    keep the carried state's schedule order (results still come back in
+    THIS batch's group order), and row assignment rides dynamic gather
+    maps, so tenant churn inside a bucket keeps every shape.
+    ``bucket_headroom`` (the daemon's arrival forecast) sizes buckets for
+    the rows expected next tick.  Bucketed admission refuses
+    ``warm_start``.
+
+    ``coldstore`` (a :class:`~repro_torch.core.coldstore.ColdStore`) opts
+    into tiered history: every index advance and cold build seals the
+    positions leaving the ring into the store (host work, after the
+    advance's device work is enqueued).  A batch whose union window falls
+    below the hot horizon (the carried ring's low watermark, else the
+    store's) routes to the COLD TIER without consuming the hot chain: the
+    view is stitched on the host from the chunks (tier ``"cold"``, or
+    ``"split"`` across the horizon) and solved as usual, bit-identical to
+    a cold full-history index solve under the same plan.  The cold tier
+    takes only ``admission=None`` and ``warm_start=False``; scan and hybrid
+    access ignore the store.  Every refused combination raises
+    ``ValueError`` before any state is consumed.
 
     ``ladder`` sets the frontier-rung cap on the batch plan (it rides the
     cache key, so a chain keeps the ladder it cold-started with): the cold
     solves run through the frontier ladder (bit-identical rows), and a
-    steady advance keeps its dense solves.  ``mesh``,
-    ``admission='bucketed'``, ``bucket_headroom`` and ``coldstore`` are not
-    in the port yet and raise ``NotImplementedError`` before any state is
-    consumed."""
-    _not_ported(mesh, admission, bucket_headroom, coldstore)
+    steady advance keeps its dense solves.  ``mesh`` is not in the port yet
+    and raises ``NotImplementedError`` before any state is consumed."""
+    if admission not in (None, "bucketed"):
+        raise ValueError(f"unknown admission mode {admission!r}; " + _SERVE_COMBOS)
+    if mesh is not None:
+        raise NotImplementedError(
+            "serve_batch(mesh=...) (sharded serving) is ROADMAP.md Queue 1 item 14")
+    bucketed = admission == "bucketed"
+    if bucketed and warm_start:
+        raise ValueError(
+            "admission='bucketed' with warm_start=True is unsupported: "
+            "containment warm inits are exact-shape per new row; " + _SERVE_COMBOS)
     if not isinstance(batch, QueryBatch):
         batch = QueryBatch.make(batch)
     for spec in batch.specs:
@@ -861,14 +1073,45 @@ def serve_batch(
     ]
     if state is not None and (
         state.graph_ref is not g.src
+        or bool(state.group_caps) != bucketed
         or (plan is not None and plan.cache_key != state.plan.cache_key)
     ):
         state = None
-    return _advance(
+    tier = _history_tier(tger, batch.union(), state, coldstore, plan, access)
+    if tier != "hot":
+        if bucketed or warm_start:
+            raise ValueError(
+                f"a below-horizon batch (tier={tier!r}) serves through the "
+                f"cold tier, which supports only admission=None and "
+                f"warm_start=False; " + _SERVE_COMBOS)
+        access = "index"
+        if state is not None and state.plan.tier != tier:
+            state = None    # a tier switch never consumes the carried state
+    order = None
+    if bucketed and state is not None:
+        # sticky group order: resident groups keep the carried schedule's
+        # position, new groups append in batch order, so a retirement that
+        # changes which spec comes first never permutes the schedule
+        rank = {k: i for i, k in enumerate(state.group_keys)}
+        order = sorted(range(len(groups)),
+                       key=lambda i: (rank.get(groups[i][0], len(rank)), i))
+        if order == list(range(len(groups))):
+            order = None
+        else:
+            groups = [groups[i] for i in order]
+    results, new_state = _advance(
         g, tger, groups, state, plan_arg=plan,
         plan_builder=lambda: plan_batch(g, tger, batch, access=access,
-                                        backend=backend, ladder=int(ladder)),
-        warm_start=warm_start)
+                                        backend=backend, bucketed=bucketed,
+                                        tier=tier, ladder=int(ladder)),
+        warm_start=warm_start, bucketed=bucketed,
+        bucket_headroom=bucket_headroom, coldstore=coldstore, tier=tier)
+    if order is not None:
+        inv = [0] * len(order)
+        for j, i in enumerate(order):
+            inv[i] = j
+        results = tuple(results[inv[i]] for i in range(len(inv)))
+    return results, new_state
 
 
 def sweep_incremental(
@@ -893,13 +1136,13 @@ def sweep_incremental(
     ``serve_batch`` drives.
 
     Returns ``(results, state)``, ``results`` shaped like :func:`sweep`'s.
-    A state from another graph / source / algorithm / kwargs / plan is not
-    reused and not consumed (a cold start).  Index and hybrid plans advance
-    their ring by the entering positions; scan plans reuse the full view.
-    ``warm_start=True`` and ``ladder`` as in :func:`serve_batch`.
-    ``coldstore`` and ``tiny_budget_gate`` are not in the port yet and
-    raise ``NotImplementedError`` before any state is consumed."""
-    _not_ported(None, None, 0, coldstore)
+    A state from another graph / source / algorithm / kwargs / plan, or a
+    bucketed one, is not reused and not consumed (a cold start).  Index and
+    hybrid plans advance their ring by the entering positions; scan plans
+    reuse the full view.  ``warm_start=True``, ``ladder`` and ``coldstore``
+    as in :func:`serve_batch` (a below-horizon sweep refuses
+    ``warm_start``).  ``tiny_budget_gate`` is not in the port yet and
+    raises ``NotImplementedError`` before any state is consumed."""
     if tiny_budget_gate:
         raise NotImplementedError(
             "tiny_budget_gate (serving tiny rings cold) waits for a crossover "
@@ -924,15 +1167,27 @@ def sweep_incremental(
         state is not None
         and state.group_keys == (key,)
         and state.graph_ref is g.src
+        and not state.group_caps          # bucketed states: padded buffers
         and all(s == src for s in state.group_sources[0])
         and (plan is None or plan.cache_key == state.plan.cache_key)
     )
     state = state if reusable else None
+    union = (int(windows[:, 0].min()), int(windows[:, 1].max()))
+    tier = _history_tier(tger, union, state, coldstore, plan, access)
+    if tier != "hot":
+        if warm_start:
+            raise ValueError(
+                f"a below-horizon sweep (tier={tier!r}) serves through the "
+                f"cold tier, which refuses warm_start; " + _SERVE_COMBOS)
+        access = "index"
+        if state is not None and state.plan.tier != tier:
+            state = None    # a tier switch never consumes the carried state
     results, new_state = _advance(
         g, tger, groups, state, plan_arg=plan,
         plan_builder=lambda: plan_query(g, tger, windows=windows, access=access,
-                                        backend=backend, ladder=int(ladder)),
-        warm_start=warm_start)
+                                        backend=backend, tier=tier,
+                                        ladder=int(ladder)),
+        warm_start=warm_start, coldstore=coldstore, tier=tier)
     return results[0], new_state
 
 

@@ -60,6 +60,9 @@ def test_port_imports_no_jax():
     lambda: init_lm(get_arch("smollm-135m").smoke_cfg, torch.Generator()),
     lambda: params_from_numpy({}, get_arch("smollm-135m").smoke_cfg),
     lambda: launch_serve.main(["--requests", "1", "--max-new", "1"]),
+    lambda: launch_serve.main(["--graph", "--advances", "1"]),
+    lambda: launch_serve.main(["--graph", "--daemon", "--ticks", "1",
+                               "--history-chunks", "64"]),
 ])
 def test_entry_points_need_a_card_or_an_explicit_device(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

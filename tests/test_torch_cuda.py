@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import build_tger, plan_query
+from repro_torch.core import ColdStore, build_tger, plan_query
 from repro_torch.core.algorithms import (
     earliest_arrival,
     fastest,
@@ -36,7 +36,7 @@ from repro_torch.kernels import segment_spmm as spmm
 from repro_torch.kernels import temporal_edgemap as tem
 from repro_torch.kernels import decode_attention as k4
 from repro_torch.models import transformer as ttf
-from repro_torch.serve import serve_batch, sliding_windows
+from repro_torch.serve import GraphBatchServer, serve_batch, sliding_windows
 from repro_torch.serve.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -406,6 +406,70 @@ def test_index_ring_advance_on_card_matches_cold_build(cuda):
     ring = advance_index_ring(g, idx, ring, lo, lo2, hi2, capacity=cap)
     cold = index_ring_view(g, idx, lo2, hi2, capacity=cap)
     assert all(torch.equal(a, b) for a, b in zip(ring, cold))
+
+
+def test_cold_store_stitch_on_card_equals_index_ring_view(cuda):
+    """A window below the watermark (cold) and one across it (split): the
+    stitched view, moved to the card, equals ``index_ring_view`` built on
+    the card, and a cold-tier EA batch equals the CPU's rows."""
+    outs = []
+    for dev in ("cpu", cuda):
+        g, idx, _, _ = _small_graph(dev)
+        cs = ColdStore(g, idx)
+        cs.note_eviction(g.n_edges // 2)
+        t_wm = int(idx.start_sorted[g.n_edges // 2])
+        t_lo = int(g.t_start.min())
+        for win in ((t_lo + 100, t_wm - 200), (t_wm - 300, t_wm + 300)):
+            lo, hi = window_positions_host(idx, win)
+            cap = 1 << max(hi - lo, 16).bit_length()
+            fields, mask, _, _ = cs.ring_stitch(win, cap)
+            ref = index_ring_view(g, idx, lo, hi, capacity=cap)
+            for a, b in zip(list(fields) + [mask], ref):
+                assert torch.equal(torch.from_numpy(a).to(g.device), b)
+        batch = QueryBatch.make([QuerySpec.make("earliest_arrival",
+                                                (t_lo + 100, t_wm - 200), sources=[0, 1])])
+        res, st = serve_batch(g, batch, idx, access="index", coldstore=cs)
+        assert st.plan.tier == "cold"
+        outs.append(res[0])
+    assert torch.equal(outs[1].cpu(), outs[0])
+
+
+def test_bucketed_daemon_tick_on_card_matches_cpu(cuda):
+    """Two daemon ticks on scan/pallas_tiled (the cheap class, then the
+    deep PageRank class): the card's rows equal the CPU's (PageRank within
+    its tolerance), K1 launches in the cheap class's serve and K3 in the
+    deep one's."""
+    runs = []
+    for dev in ("cpu", cuda):
+        g, _, _, _ = _small_graph(dev)
+        idx = build_tger(g, degree_cutoff=256)
+        t_hi = int(g.t_end.max())
+        width = (t_hi - int(g.t_start.min())) // 10
+        server = GraphBatchServer(g, idx, access="scan", backend="pallas_tiled")
+        for i, alg in enumerate(("earliest_arrival", "bfs", "cc")):
+            server.submit(QuerySpec.make(alg, (0, width),
+                                         sources=None if alg == "cc" else i))
+        server.submit(QuerySpec.make("pagerank", (0, width), n_iters=10))
+        reps, counts = [], []
+        for k in range(2):
+            reset_launch_counts()
+            reps.append(server.tick(t_hi - (1 - k) * width // 8))
+            counts.append(launch_counts())
+        runs.append((reps, counts, server._class_states["cheap"].group_caps))
+    (cpu_reps, cpu_counts, caps0), (reps, counts, caps1) = runs
+    assert caps0 == caps1 and all(c for c in caps1)
+    assert all(set(c.values()) == {0} for c in cpu_counts)
+    assert counts[0]["segment_min_tiles"] > 0 and counts[0]["segment_spmm_tiles"] > 0
+    for rep, cpu_rep in zip(reps, cpu_reps):
+        assert rep.classes_served == cpu_rep.classes_served
+        for tid, got in rep.results.items():
+            want = cpu_rep.results[tid]
+            if tid == 3:
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+                continue
+            for a, b in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                assert (a == b).all(), (rep.tick, tid)
 
 
 # -- K4: decode_attention ------------------------------------------------------

@@ -3,11 +3,13 @@ JAX package on the same graphs and windows; decisions must be identical."""
 import numpy as np
 import pytest
 
+import repro.core.coldstore as jcold
 import repro.core.selective as jsel
 import repro.core.tger as jtger
 import repro.data.generators as jgen
 import repro.engine.plan as jplan
 import repro.kernels.layout as jlayout
+import repro_torch.core.coldstore as tcold
 import repro_torch.core.selective as tsel
 import repro_torch.core.tger as ttger
 import repro_torch.data.generators as tgen
@@ -45,7 +47,7 @@ def _windows(jg):
 
 _PLAN_FIELDS = ["method", "backend", "budget", "per_vertex_budget", "tile_v",
                 "block_e", "n_tiles", "n_edges", "cache_key", "n_windows",
-                "ring_capacity", "layout_perm", "layout_block_tile"]
+                "ring_capacity", "tier", "layout_perm", "layout_block_tile"]
 
 
 @pytest.mark.parametrize("kind", ["power_law", "transit"])
@@ -96,14 +98,68 @@ def test_plan_query_without_index_and_errors():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(coldstore=object()), "item 12"),
-    (dict(tier="cold"), "item 12"),
     (dict(exchange_budget=8), "item 14"),
 ])
 def test_out_of_slice_options_raise(kw, item):
     _, tg, _, ti = _pair("power_law", 7)
     with pytest.raises(NotImplementedError, match=item):
         tplan.plan_query(tg, ti, (0, 10), **kw)
+
+
+@pytest.mark.parametrize("tier", ["hot", "cold", "split"])
+@pytest.mark.parametrize("access", ["auto", "index"])
+@pytest.mark.parametrize("backend", ["xla_segment", "pallas_tiled"])
+def test_tier_plan_matches_jax(tier, access, backend):
+    """A cold store half-way through the history classifies a window
+    above, below and across its watermark as in the JAX package: the
+    same tier, an index plan with the span's capacity rung below the
+    horizon, and the same cache key (``/Tcold``, ``/Tsplit``), single-
+    window and batch plans alike; ``tier=`` overrides the store."""
+    jg, tg, ji, ti = _pair("power_law", 7)
+    jcs = jcold.ColdStore(jg, ji, chunk_slots=256)
+    tcs = tcold.ColdStore(tg, ti, chunk_slots=256)
+    wm = jg.n_edges // 2
+    jcs.note_eviction(wm)
+    tcs.note_eviction(wm)
+    t_wm = int(np.asarray(ji.start_sorted)[wm])
+    ts = np.asarray(jg.t_start)
+    t_lo, t_hi = int(ts.min()), int(np.asarray(jg.t_end).max())
+    win = {"hot": (t_wm + 1, t_hi), "cold": (t_lo, t_wm - (t_hi - t_lo) // 50),
+           "split": (t_wm - (t_hi - t_lo) // 20, t_wm + (t_hi - t_lo) // 20)}[tier]
+    kw = dict(access=access, backend=backend)
+    a = jplan.plan_query(jg, ji, win, coldstore=jcs, **kw)
+    b = tplan.plan_query(tg, ti, win, coldstore=tcs, **kw)
+    assert a.tier == b.tier == tier
+    assert_fields_equal(a, b, _PLAN_FIELDS)
+    if tier != "hot":
+        assert b.method == "index" and b.cache_key.endswith(f"/T{tier}")
+    # the override, without a store
+    a = jplan.plan_query(jg, ji, windows=[win, (win[0], win[0] + 5)], tier=tier, **kw)
+    b = tplan.plan_query(tg, ti, windows=[win, (win[0], win[0] + 5)], tier=tier, **kw)
+    assert_fields_equal(a, b, _PLAN_FIELDS)
+    import repro.engine.queries as jqueries
+    jb = jqueries.QueryBatch.make([jqueries.QuerySpec.make("cc", win)])
+    tb = tqueries.QueryBatch.make([tqueries.QuerySpec.make("cc", win)])
+    for bucketed in (False, True):
+        assert (tplan.plan_batch(tg, ti, tb, coldstore=tcs, bucketed=bucketed, **kw).cache_key
+                == jplan.plan_batch(jg, ji, jb, coldstore=jcs, bucketed=bucketed,
+                                    **kw).cache_key)
+
+
+def test_tier_plan_errors_as_in_jax():
+    """Below-horizon tiers need a TGER and the index method; an unknown
+    tier raises: both packages raise ValueError alike."""
+    jg, tg, ji, ti = _pair("power_law", 7)
+    for fn, g, i in ((jplan.plan_query, jg, ji), (tplan.plan_query, tg, ti)):
+        with pytest.raises(ValueError, match="TGER"):
+            fn(g, None, (0, 10), tier="cold")
+        for access in ("scan", "hybrid"):
+            with pytest.raises(ValueError, match="index"):
+                fn(g, i, (0, 10), tier="split", access=access)
+        with pytest.raises(ValueError, match="tier"):
+            fn(g, i, (0, 10), tier="lukewarm")
+    with pytest.raises(ValueError, match="tier"):
+        tplan.make_plan("index", tier="lukewarm")
 
 
 def test_ladder_rides_the_cache_key_as_in_jax():
@@ -132,13 +188,18 @@ def test_ladder_rides_the_cache_key_as_in_jax():
 
 
 def test_plan_batch_not_ported():
-    """plan_batch is ported; its sharded and bucketed forms are not yet."""
-    _, tg, _, ti = _pair("power_law", 7)
+    """plan_batch is ported, its bucketed form too (the key equals the JAX
+    one); its sharded form is not yet."""
+    jg, tg, ji, ti = _pair("power_law", 7)
     batch = tqueries.QueryBatch.make([tqueries.QuerySpec.make("cc", (0, 10))])
     with pytest.raises(NotImplementedError, match="item 14"):
         tplan.plan_batch(tg, ti, batch, shards=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tplan.plan_batch(tg, ti, batch, bucketed=True)
+    import repro.engine.queries as jqueries
+    jb = jqueries.QueryBatch.make([jqueries.QuerySpec.make("cc", (0, 10))] * 3)
+    tb = tqueries.QueryBatch.make([tqueries.QuerySpec.make("cc", (0, 10))] * 3)
+    key = tplan.plan_batch(tg, ti, tb, bucketed=True).cache_key
+    assert key == jplan.plan_batch(jg, ji, jb, bucketed=True).cache_key
+    assert "ccx4b" in key
 
 
 @pytest.mark.parametrize("kind", ["power_law", "transit"])

@@ -186,5 +186,3 @@ def test_plan_batch_options_not_in_the_port():
     batch = te.QueryBatch.make([te.QuerySpec.make("cc", (0, 10))])
     with pytest.raises(NotImplementedError, match="item 14"):
         tplan.plan_batch(tg, ti, batch, shards=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tplan.plan_batch(tg, ti, batch, bucketed=True)

@@ -1,6 +1,6 @@
 """Multi-tenant incremental serving in the port (``serve_batch``,
 ``sweep_incremental``), mirroring the results-level tests of
-``test_multitenant.py`` (all but the sharded and bucketed ones) and of
+``test_multitenant.py`` (all but the sharded ones) and of
 ``test_serving_soak.py``: every advance's rows bit-identical to cold
 sweeps (floats within rtol 1e-5 / atol 1e-7), the same ``last_advance``,
 ``n_solved``, ``n_solved_unique`` and ``warm_applied`` as the JAX engine on
@@ -402,9 +402,9 @@ def test_serve_batch_mismatched_state_falls_cold_without_consuming():
 
 
 def test_unknown_algorithm_and_options_not_in_the_port():
-    """An unknown algorithm raises ValueError; mesh, bucketed admission
-    and the cold store raise NotImplementedError naming their ROADMAP
-    item, before the carried state is touched."""
+    """An unknown algorithm and an unknown admission mode raise ValueError;
+    the mesh raises NotImplementedError naming its ROADMAP item, before the
+    carried state is touched."""
     _, _, g, idx, _, t_min, t_max = _case()
     with pytest.raises(ValueError, match="algorithm"):
         serve_batch(g, te.QueryBatch.make(
@@ -413,9 +413,7 @@ def test_unknown_algorithm_and_options_not_in_the_port():
     batch = te.QueryBatch.make(
         [te.QuerySpec.make("earliest_arrival", (b - 50, b), sources=1)])
     _, state = serve_batch(g, batch, idx, access="index")
-    for kw, item in ((dict(mesh=2), "item 14"), (dict(admission="bucketed"), "item 13"),
-                     (dict(bucket_headroom=4), "item 13"),
-                     (dict(coldstore=object()), "item 12")):
+    for kw, item in ((dict(mesh=2), "item 14"),):
         with pytest.raises(NotImplementedError, match=item):
             serve_batch(g, batch, idx, state=state, access="index", **kw)
     with pytest.raises(ValueError, match="admission"):
