@@ -56,7 +56,20 @@
    ``run_daemon --history-chunks 1024`` on transit with a pinned CC
    tenant (its rows the full-history solve on every tick, its repeat
    serve a noop).
-7. K4 (flash-decode attention) at phi4-mini-3.8b's decode shape (8 rows,
+7. Distributed serving and the edge-partitioned engine on NCCL, their
+   launch counts read around them: a process group of one rank in this
+   process; on both graphs the distributed EA from the context's four
+   sources (scan, the index budget on per-shard sorted edges, the top-K
+   exchange) on the narrow and wide windows, bit-identical to
+   ``earliest_arrival`` and timed per query and per round, PageRank rounds
+   against a float64 oracle and CC rounds to labels equal to
+   ``temporal_cc``; ``serving_path``'s batch with ``mesh=1`` in turns with
+   the unsharded chain (rows equal, K1 and K3 inside every sharded
+   advance, one advance profiled with its NCCL kernels apart); then
+   ``launch/serve.py --daemon --shard-queries 1`` under ``torchrun`` as a
+   subprocess (exit 0), and, on a machine with more cards, the engine and
+   the sharded serving on min(cards, 4) spawned NCCL ranks.
+8. K4 (flash-decode attention) at phi4-mini-3.8b's decode shape (8 rows,
    2048 positions, ragged lengths, GQA group 3, d_head 128) in bfloat16 and
    float32 against its plain version, timed beside it, beside
    scaled_dot_product_attention and beside its bytes bound: warm (one set of
@@ -65,7 +78,7 @@
    kernels of each source present in DIR (``temporal_edgemap.cu``,
    ``segment_spmm.cu``, ``decode_attention.cu``: the kernels before their
    redesign) are built and timed in turns with these (old, new, new, old).
-8. LM continuous batching at phi4-mini-3.8b's published widths (32 layers,
+9. LM continuous batching at phi4-mini-3.8b's published widths (32 layers,
    bfloat16, random weights from ``--seed``): a ServeEngine of 8 slots x
    2048 positions serves 16 seeded requests (prompts of 16-512 tokens,
    budgets up to 64, one of 1 and one of 0), with launch counts reset just
@@ -73,10 +86,10 @@
    of the engine's own decode steps and every served token are checked
    against ``forward``; prefill and decode times, tokens/s and a profile of
    one decode step are printed.
-9. Prints the kernel table as one JSON line (each kernel's launches on
-   the counted paths of items 4–6 and 8, the ladder phase's and the
-   history/daemon phase's also apart, and K1's launches inside laddered
-   solves), then the result line.
+10. Prints the kernel table as one JSON line (each kernel's launches on
+   the counted paths of items 4–7 and 9, the ladder phase's, the
+   history/daemon phase's and the distributed phase's also apart, and K1's
+   launches inside laddered solves), then the result line.
 
 Any mismatch raises, and the script exits non-zero.  It imports nothing
 of JAX or of the JAX package.
@@ -87,6 +100,7 @@ import argparse
 import contextlib
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -634,17 +648,21 @@ def spmm_phases(torch, np, layouts, seed, spmm, ops, segments_for, parent=None):
     return row
 
 
-def pagerank_oracle(np, src, dst, ts, te, n_v, window, n_iters, damping=0.85):
-    """Vectorised float64 numpy PageRank over the window-valid edges."""
+def pagerank_oracle(np, src, dst, ts, te, n_v, window, n_iters, damping=0.85,
+                    dangling=True):
+    """Vectorised float64 numpy PageRank over the window-valid edges
+    (``dangling=False``: the distributed round's, whose dangling vertices'
+    mass is not spread)."""
     ok = (ts >= window[0]) & (te <= window[1])
     s, d = src[ok], dst[ok]
     out_deg = np.bincount(s, minlength=n_v).astype(np.float64)
     inv = np.where(out_deg > 0, 1.0 / np.maximum(out_deg, 1.0), 0.0)
-    dangling = out_deg == 0
+    sinks = out_deg == 0
     pr = np.full(n_v, 1.0 / n_v)
     for _ in range(n_iters):
         agg = np.bincount(d, weights=(pr * inv)[s], minlength=n_v)
-        pr = (1 - damping) / n_v + damping * (agg + pr[dangling].sum() / n_v)
+        spread = pr[sinks].sum() / n_v if dangling else 0.0
+        pr = (1 - damping) / n_v + damping * (agg + spread)
     return pr
 
 
@@ -2113,6 +2131,302 @@ def history_daemon_path(torch, np, graphs, contexts, failures, seed):
     return records
 
 
+DIST_MAX_ROUNDS = 100_000  # the EA loops stop at their fixpoint
+DIST_TOPK = 1 << 16        # the top-K exchange's budget per source row
+DIST_PR_ROUNDS = 20
+DIST_REPS = 3              # timed calls per distributed EA query (median)
+DIST_DAEMON_TICKS = 4
+DIST_MAX_RANKS = 4
+
+
+def free_port() -> int:
+    """A free localhost TCP port for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_engine(torch, np, name, g, tger, fields, windows, sources, mesh):
+    """The edge-partitioned engine on ``mesh``: distributed EA from the
+    context's sources (scan; the index budget on per-shard sorted edges;
+    the top-K exchange) equal bit for bit to ``earliest_arrival`` on the
+    narrow and the wide window, timed per query and per round; PageRank
+    rounds against the float64 oracle of the same round; CC rounds to their
+    fixpoint against ``temporal_cc``'s labels."""
+    from repro_torch.core.algorithms import earliest_arrival, temporal_cc
+    from repro_torch.distributed import graph_engine as ge
+    from repro_torch.engine.plan import make_plan, rung
+
+    sync = torch.cuda.synchronize
+    dev = g.src.device
+    src_np, dst_np, ts_np, te_np = fields
+    V, S = g.n_vertices, len(sources)
+    edges = ge.shard_edges(mesh, g.src, g.dst, g.t_start, g.t_end)
+    evalid = ge.shard_edges(mesh, torch.ones(g.n_edges, dtype=torch.bool, device=dev))[0]
+    srt = ge.sort_edges_by_time_per_shard(mesh, *fields)
+    srt_ts = srt[2].cpu().numpy()
+    records = []
+    for wname in ("narrow", "wide"):
+        win = windows[wname]
+        ref = torch.stack([earliest_arrival(g, s, win, tger) for s in sources])
+        arr0 = torch.full((S, V), INF, dtype=torch.int32, device=dev)
+        arr0[torch.arange(S, device=dev), torch.tensor(sources, device=dev)] = win[0]
+        in_win = int(np.searchsorted(srt_ts, win[1], side="right")
+                     - np.searchsorted(srt_ts, win[0], side="left"))
+        for kind, plan, arrays, valid, srt_ok in (
+                ("scan", None, edges, evalid, False),
+                ("index", make_plan("index", budget=rung(max(in_win, 1))), srt[:4],
+                 srt[4], True),
+                ("topk", make_plan("scan", exchange_budget=DIST_TOPK), edges, evalid,
+                 False)):
+            times = []
+            for _ in range(DIST_REPS):
+                sync()
+                t0 = time.perf_counter()
+                out, rounds = ge.run_distributed_ea(
+                    mesh, arr0, arrays, valid, win, max_rounds=DIST_MAX_ROUNDS,
+                    plan=plan, edges_time_sorted=srt_ok, with_rounds=True)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"[{name}] distributed EA {kind} {wname} differs "
+                                     f"from earliest_arrival")
+            ms = float(np.median(times))
+            key = "" if plan is None else f" ({plan.cache_key})"
+            log(f"[{name}] distributed EA {kind}{key} {wname}: {S} sources, {rounds} "
+                f"rounds, {ms:.3f} ms per query (median of {DIST_REPS}: "
+                f"{', '.join(f'{t:.3f}' for t in times)}), {ms / rounds:.3f} ms per "
+                f"round; equal to earliest_arrival")
+            records.append(dict(graph=name, algorithm=f"distributed_ea_{kind}",
+                                window=wname, sources=S, rounds=rounds, ms=ms,
+                                ms_per_round=ms / rounds, ms_all=times,
+                                in_window_edges=in_win))
+    win = windows["narrow"]
+    ok = (g.t_start >= win[0]) & (g.t_end <= win[1])
+    deg = torch.bincount(g.src[ok].long(), minlength=V).float()
+    inv = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0), 0.0)
+    pr_round = ge.make_pagerank_round(mesh, V)
+    pr = torch.full((V,), 1.0 / V, dtype=torch.float32, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(DIST_PR_ROUNDS):
+        pr = pr_round(pr, *edges, evalid, inv, win)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = pagerank_oracle(np, src_np, dst_np, ts_np, te_np, V, win, DIST_PR_ROUNDS,
+                           dangling=False)
+    rel, l1 = pagerank_err(np, pr.cpu().numpy(), want)
+    if not (rel <= PR_MAX_REL and l1 <= PR_L1):
+        raise AssertionError(f"[{name}] distributed PageRank off its oracle: {rel:.3g}, "
+                             f"L1 {l1:.3g}")
+    log(f"[{name}] distributed PageRank narrow: {DIST_PR_ROUNDS} rounds in {ms:.3f} ms "
+        f"({ms / DIST_PR_ROUNDS:.3f} ms per round); max |err| / max(pr) {rel:.3g}, "
+        f"L1 {l1:.3g} against the float64 oracle")
+    records.append(dict(graph=name, algorithm="distributed_pagerank", window="narrow",
+                        rounds=DIST_PR_ROUNDS, ms=ms, ms_per_round=ms / DIST_PR_ROUNDS,
+                        max_rel_err=rel, l1=l1))
+    cc_round = ge.make_cc_round(mesh, V)
+    labels = torch.arange(V, dtype=torch.int32, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    for rounds in range(1, DIST_MAX_ROUNDS + 1):
+        new = cc_round(labels, *edges, evalid, win)
+        if torch.equal(new, labels):
+            break
+        labels = new
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(labels, temporal_cc(g, win, tger)):
+        raise AssertionError(f"[{name}] distributed CC labels differ from temporal_cc")
+    log(f"[{name}] distributed CC narrow: {rounds} rounds in {ms:.3f} ms "
+        f"({ms / rounds:.3f} ms per round); labels equal to temporal_cc")
+    records.append(dict(graph=name, algorithm="distributed_cc", window="narrow",
+                        rounds=rounds, ms=ms, ms_per_round=ms / rounds))
+    return records
+
+
+def dist_serving(torch, np, name, g, tger, fields, failures, mesh):
+    """``serving_path``'s batch served twice in turns, unsharded and with
+    ``mesh`` (scan/pallas_tiled): a cold start and SERVE_ADVANCES advances,
+    integer rows bit-identical to the unsharded chain's, PageRank rows
+    within the PageRank tolerance, K1 and K3 launched inside every sharded
+    advance; then one sharded advance profiled (its NCCL time apart)."""
+    from repro_torch.device import to_numpy
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve import dispatch_log, serve_batch
+
+    sync = torch.cuda.synchronize
+    batch_at, base, stride = serving_stream(np, fields)
+    n_d = int(mesh.size())
+    st = {None: None, "mesh": None}
+    records, sharded_ms = [], []
+    for step in range(SERVE_ADVANCES + 1):
+        batch = batch_at(base + step * stride)
+        res, tags, ms, k = {}, {}, {}, {}
+        for key in st:
+            before = launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            with dispatch_log() as tags[key]:
+                res[key], st[key] = serve_batch(
+                    g, batch, tger, state=st[key], access="scan", backend="pallas_tiled",
+                    mesh=None if key is None else mesh)
+            sync()
+            ms[key] = (time.perf_counter() - t0) * 1e3
+            after = launch_counts()
+            k[key] = {n: after[n] - before[n]
+                      for n in ("segment_min_tiles", "segment_spmm_tiles")}
+        want_tag = [] if step == 0 else [f"fused:scan@q{n_d}"]
+        if step and tags["mesh"] != want_tag:
+            raise AssertionError(f"[{name}] sharded advance {step} logged {tags['mesh']}")
+        if min(k["mesh"].values()) <= 0:
+            raise AssertionError(f"[{name}] sharded advance {step}: launches {k['mesh']}")
+        for gi, ((alg, _), _) in enumerate(batch.groups().items()):
+            a, b = res[None][gi], res["mesh"][gi]
+            if alg == "pagerank":
+                for qi in range(a.shape[0]):
+                    check_pagerank(np, f"[{name}] sharded advance {step} pagerank row {qi}",
+                                   to_numpy(b[qi]), to_numpy(a[qi]).astype(np.float64),
+                                   failures)
+            elif not _bit_equal(torch, a, b):
+                raise AssertionError(f"[{name}] sharded advance {step}: {alg} rows differ "
+                                     f"from the unsharded chain")
+        if step:
+            sharded_ms.append(ms["mesh"])
+        log(f"[{name}] sharded serving {st['mesh'].last_advance} {step} (mesh {n_d}): "
+            f"{ms['mesh']:.3f} ms against unsharded {ms[None]:.3f} ms, "
+            f"{st['mesh'].n_solved_unique} unique rows solved, K1 "
+            f"{k['mesh']['segment_min_tiles']} / K3 {k['mesh']['segment_spmm_tiles']} "
+            f"launches; rows equal to the unsharded chain")
+        records.append(dict(graph=name, algorithm="serve_batch_sharded", step=step,
+                            mesh=n_d, advance=st["mesh"].last_advance, ms=ms["mesh"],
+                            unsharded_ms=ms[None],
+                            k1_launches=k["mesh"]["segment_min_tiles"],
+                            k3_launches=k["mesh"]["segment_spmm_tiles"]))
+    carry = [st["mesh"]]
+
+    def one_more():
+        carry[0] = serve_batch(g, batch_at(base + (SERVE_ADVANCES + 1) * stride), tger,
+                               state=carry[0], access="scan", backend="pallas_tiled",
+                               mesh=mesh)[1]
+
+    prof = profile_query(torch, f"[{name}] sharded serving advance (mesh {n_d})",
+                         one_more, warm=False)
+    nccl = {kn: us for kn, us in prof["by_kernel"].items() if "nccl" in kn.lower()}
+    nccl_us = sum(nccl.values())
+    log(f"[{name}] sharded advance NCCL kernels: {nccl_us:.1f} us of "
+        f"{prof['busy_us']:.1f} us device busy in "
+        f"{sum(prof['count_by_kernel'][kn] for kn in nccl)} launches")
+    rec = idle_record(np, name, "serve_batch_sharded_profile", prof, sharded_ms)
+    rec.update(nccl_us=nccl_us, mesh=n_d)
+    records.append(rec)
+    return records
+
+
+def dist_launcher(torch, seed, device="cuda"):
+    """``launch/serve.py --graph --daemon --shard-queries 1`` under torchrun
+    (one rank, NCCL) as a subprocess for a few ticks: it must exit 0."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.serve", "--graph",
+           "--daemon", "--shard-queries", "1", "--ticks", str(DIST_DAEMON_TICKS),
+           "--seed", str(seed)] + (["--device", device] if device != "cuda" else [])
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                         cwd=str(ROOT))
+    s = time.perf_counter() - t0
+    for line in run.stdout.strip().splitlines():
+        log(f"[torchrun] {line}")
+    if run.returncode != 0:
+        raise AssertionError(f"torchrun launcher exited {run.returncode}:\n"
+                             f"{run.stderr[-3000:]}")
+    log(f"[torchrun] --daemon --shard-queries 1: exit 0 in {s:.2f} s")
+    return [dict(graph="power_law_small", algorithm="torchrun_daemon_shard_queries_1",
+                 wall_s=s, ticks=DIST_DAEMON_TICKS)]
+
+
+def dist_rank(rank, world, port, seed, device, out_dir):
+    """One rank of the multi-card run: NCCL over ``world`` cards, the
+    engine's EA on power_law (scan, edges over ``world`` ranks) equal to
+    ``earliest_arrival``, and ``serving_path``'s batch at ``mesh=world``
+    equal to the unsharded chain; writes its summary to a JSON file."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data.generators import power_law_temporal_graph
+    from repro_torch.distributed import init_process_group, make_mesh
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    init_process_group(device, init_method=f"tcp://localhost:{port}",
+                       world_size=world, rank=rank)
+    dev = torch.device(device, rank) if device == "cuda" else torch.device(device)
+    g = power_law_temporal_graph(WIKI_TALK_VERTICES, WIKI_TALK_EDGES, seed=seed, device=dev)
+    tger, fields, windows, sources = graph_context(torch, np, "power_law", g)
+    mesh = make_mesh((world, 1), ("data", "model"), device=device)
+    recs = dist_engine(torch, np, "power_law", g, tger, fields,
+                       {"narrow": windows["narrow"], "wide": windows["narrow"]},
+                       sources, mesh)
+    failures = []
+    from repro_torch.distributed import query_mesh
+
+    recs += dist_serving(torch, np, "power_law", g, tger, fields, failures,
+                         query_mesh(world, device=device))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    (Path(out_dir) / f"rank{rank}.json").write_text(
+        json.dumps(dict(records=recs, failures=failures)))
+
+
+def distributed_path(torch, np, graphs, contexts, failures, seed, device="cuda"):
+    """Distributed serving and the edge-partitioned engine on NCCL: a
+    process group of one rank in this process (the engine on both graphs,
+    sharded serving on power_law, the torchrun launcher), then, where the
+    machine has more cards, min(cards, DIST_MAX_RANKS) spawned ranks.
+    (``device="cpu"`` rehearses it on gloo.)"""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_process_group, make_mesh, query_mesh
+
+    init_process_group(device, init_method=f"tcp://localhost:{free_port()}",
+                       world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=device)
+        records = []
+        for name, g in graphs.items():
+            tger, fields, windows, sources = contexts[name]
+            records += dist_engine(torch, np, name, g, tger, fields, windows, sources,
+                                   mesh)
+        tger, fields, _, _ = contexts["power_law"]
+        records += dist_serving(torch, np, "power_law", graphs["power_law"], tger,
+                                fields, failures, query_mesh(1, device=device))
+    finally:
+        dist.destroy_process_group()
+    records += dist_launcher(torch, seed, device)
+    world = min(torch.cuda.device_count(), DIST_MAX_RANKS) if device == "cuda" else 1
+    if world > 1:
+        import tempfile
+
+        import torch.multiprocessing as mp
+
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+            mp.start_processes(dist_rank, args=(world, free_port(), seed, "cuda", out_dir),
+                               nprocs=world, join=True, start_method="spawn")
+            for r in range(world):
+                got = json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                failures += [f"rank {r}: {f}" for f in got["failures"]]
+                if r == 0:
+                    records += [dict(rec, world=world) for rec in got["records"]]
+        log(f"distributed phase on {world} cards: every rank's checks held")
+    return records
+
+
 def graph_context(torch, np, name, g):
     """The graph's TGER, host copies of its edge fields, the narrow (span/50)
     and wide windows, and the sources: the top out-degree vertex, then
@@ -2827,6 +3141,14 @@ def main(argv=None) -> int:
     for kernel in ("segment_min_tiles", "segment_spmm_tiles"):
         if history_counts[kernel] <= 0:
             raise AssertionError(f"{kernel} was never launched in the daemon phase")
+    # -- distributed serving and the edge-partitioned engine, counted ---------
+    reset_launch_counts()
+    records += distributed_path(torch, np, graphs, contexts, failures, args.seed)
+    dist_counts = launch_counts()
+    log(f"distributed phase launches: {dist_counts}")
+    for kernel in ("segment_min_tiles", "segment_spmm_tiles"):
+        if dist_counts[kernel] <= 0:
+            raise AssertionError(f"{kernel} was never launched in the distributed phase")
     if failures:
         raise AssertionError(f"{len(failures)} checks failed:\n" + "\n".join(failures))
 
@@ -2859,8 +3181,10 @@ def main(argv=None) -> int:
     for row in rows:
         row["ladder_launches"] = ladder_counts[row["name"]]
         row["history_daemon_launches"] = history_counts[row["name"]]
+        row["distributed_launches"] = dist_counts[row["name"]]
         row["launches"] = (counts[row["name"]] + row["ladder_launches"]
-                           + row["history_daemon_launches"])
+                           + row["history_daemon_launches"]
+                           + row["distributed_launches"])
         if row["name"] == "segment_min_tiles":
             row["launches_in_laddered_solves"] = laddered_k1
         if row["launches"] <= 0:

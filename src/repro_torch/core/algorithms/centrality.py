@@ -26,15 +26,19 @@ from repro_torch.core.edgemap import INT_INF, EdgeView, ensure_plan, union_windo
 from repro_torch.core.predicates import OrderingPredicateType, edge_follows
 from repro_torch.core.temporal_graph import TemporalGraph
 from repro_torch.core.tger import TGERIndex
+from repro_torch.distributed.collectives import all_reduce
 from repro_torch.engine.fixpoint import FixpointRunner
 from repro_torch.engine.frontier import ladder_eligible
 from repro_torch.engine.plan import AccessPlan
 
 
 def _brandes_rows(edges, valid, windows, sources, t, n_buckets: int,
-                  pred: OrderingPredicateType, n_vertices: int) -> torch.Tensor:
+                  pred: OrderingPredicateType, n_vertices: int,
+                  axis=None) -> torch.Tensor:
     """delta[Q, V] from the rows' EA labels ``t`` [Q, V] and validity
-    ``valid`` [Q, E']."""
+    ``valid`` [Q, E'].  ``axis`` (the plan's ``edge_axis``) makes each
+    bucket pass's sum global across the edge ranks; every rank runs the
+    same P passes, so the ranks stay in lockstep."""
     V, P = n_vertices, n_buckets
     Q = t.shape[0]
     dev = t.device
@@ -70,6 +74,8 @@ def _brandes_rows(edges, valid, windows, sources, t, n_buckets: int,
         lo, hi = off[p], off[p + 1]
         contrib = torch.zeros(n_flat, dtype=torch.float32, device=dev)
         contrib.index_add_(0, f_dst[lo:hi], sigma[f_src[lo:hi]])
+        if axis is not None:
+            all_reduce(contrib, "sum", axis)
         sigma = torch.where(assignable & (bv == p), contrib, sigma)
 
     # backward: dependencies in reverse bucket order
@@ -82,6 +88,8 @@ def _brandes_rows(edges, valid, windows, sources, t, n_buckets: int,
         w = ratio[lo:hi] * (1.0 + delta[f_dst[lo:hi]])
         add = torch.zeros(n_flat, dtype=torch.float32, device=dev)
         add.index_add_(0, f_src[lo:hi], torch.where(counts[lo:hi], w, 0.0))
+        if axis is not None:
+            all_reduce(add, "sum", axis)
         delta = delta + add
     delta = delta.reshape(Q, V)
     delta[rows, sources] = 0.0
@@ -133,7 +141,7 @@ def _temporal_betweenness_over_view(edges, windows, *, plan, n_vertices, sources
                                     plan=plan, n_vertices=n_vertices, pred=pred,
                                     max_rounds=max_rounds, ladder=ladder)   # [Q, V]
     return _brandes_rows(edges, runner.valid, runner.windows, runner.sources, t,
-                         n_buckets, pred, n_vertices)
+                         n_buckets, pred, n_vertices, axis=plan.edge_axis)
 
 
 def temporal_betweenness(

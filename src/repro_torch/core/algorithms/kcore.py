@@ -33,13 +33,16 @@ def _live_degree(runner: FixpointRunner, alive):
     ([V] or [Q, V])."""
     src, dst = runner.hoisted("endpoints", lambda: (runner.edges.src.long(),
                                                     runner.edges.dst.long()))
-    V = runner.n_vertices
+    V, ax = runner.n_vertices, runner.plan.edge_axis
+    # under an edge axis both degree sums are global, so the peeling (and
+    # ``changed``) is the same on every edge rank: the loop stays in lockstep
     if runner.batched:
         ones = (runner.valid & alive[:, src] & alive[:, dst]).to(torch.int32)
-        return (segment_combine_windows(ones, dst, V, "sum")
-                + segment_combine_windows(ones, src, V, "sum"))
+        return (segment_combine_windows(ones, dst, V, "sum", axis=ax)
+                + segment_combine_windows(ones, src, V, "sum", axis=ax))
     ones = (runner.valid & alive[src] & alive[dst]).to(torch.int32)
-    return segment_combine(ones, dst, V, "sum") + segment_combine(ones, src, V, "sum")
+    return (segment_combine(ones, dst, V, "sum", axis=ax)
+            + segment_combine(ones, src, V, "sum", axis=ax))
 
 
 def _peel_round(runner: FixpointRunner, k: int):

@@ -70,7 +70,7 @@ def temporal_pagerank_over_view(
     W = runner.windows.shape[0]
     # the degree reduce goes into src: the native-order layout does not apply
     out_deg = segment_combine_windows(runner.valid.to(torch.float32), edges.src,
-                                      V, "sum")                        # [W, V]
+                                      V, "sum", axis=plan.edge_axis)   # [W, V]
     inv_deg = torch.where(out_deg > 0, 1.0 / torch.clamp(out_deg, min=1.0), 0.0)
     dangling = out_deg == 0
     if init is None:

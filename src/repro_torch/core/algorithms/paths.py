@@ -397,7 +397,8 @@ def shortest_duration(
         dur, frontier = state
         usable = base_valid & frontier[src] & src_ok
         cand = torch.where(from_source, 0.0, dur[src, p_src_c]) + cost
-        upd = segment_combine(cand, flat_ids, V * P, "min", mask=usable)
+        upd = segment_combine(cand, flat_ids, V * P, "min", mask=usable,
+                              axis=plan.edge_axis)
         new_dur = torch.cummin(torch.minimum(dur, upd.view(V, P)), dim=1).values
         return new_dur, (new_dur < dur).any(dim=1)
 

@@ -60,7 +60,8 @@ def _reach_round(runner: FixpointRunner):
     valid = runner.valid if runner.batched else runner.valid[None, :]
 
     def combine(vals, ids, mask):
-        return segment_combine_windows(vals, ids[0], V, "min", masks=mask)
+        return segment_combine_windows(vals, ids[0], V, "min", masks=mask,
+                                       axis=runner.plan.edge_axis)
 
     def body(state, rnd):
         s_end, s_start, frontier = state

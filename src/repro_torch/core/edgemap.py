@@ -357,7 +357,8 @@ def edge_map_over_view(
                            use_layout=plan.method == "scan" and direction == "out")
     if not compute_touched:
         return out, None
-    touched = segment_combine(valid.to(torch.int32), to_v, n_vertices, "sum") > 0
+    touched = segment_combine(valid.to(torch.int32), to_v, n_vertices, "sum",
+                              axis=plan.edge_axis) > 0
     return out, touched
 
 
@@ -426,7 +427,7 @@ def edge_map_over_view_batched(
     if not compute_touched:
         return out, None
     touched = segment_combine_windows(valid.to(torch.int32), to_v, n_vertices,
-                                      "sum") > 0
+                                      "sum", axis=plan.edge_axis) > 0
     return out, touched
 
 

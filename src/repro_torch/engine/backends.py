@@ -13,6 +13,14 @@ Two backends, named as in the JAX package:
 Segment ids are prepared once per view (:func:`segments_for`): the int64
 scatter index, and for the tiled kernels the layout gather and each slot's
 local destination.  A fixpoint round then pays only the value gathers.
+
+Under a plan whose ``edge_axis`` is set (an edge-sharded solve: this rank
+holds one chunk of the view's edges) every combine takes the segment path
+and ends with ONE collective over that mesh dimension: min, max and sum
+are associative and identity-padded, so the combined partials equal the
+unsharded reduce (a float sum up to its summation order).  The tile layout
+is a whole-graph grouping, so K1 and K3 run only where the edge axis is
+replicated.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.collectives import all_reduce
 from repro_torch.engine.plan import AccessPlan
 from repro_torch.kernels.segment_spmm import segment_spmm_tiles
 from repro_torch.kernels.temporal_edgemap import INT_INF, segment_min_tiles
@@ -81,18 +90,24 @@ def segments_for(plan: Optional[AccessPlan], segment_ids, *,
         return segment_ids
     ids = segment_ids.long()
     tiles = None
-    if plan is not None and use_layout and plan.backend == "pallas_tiled":
+    if (plan is not None and use_layout and plan.backend == "pallas_tiled"
+            and plan.edge_axis is None):
         tiles = _tile_gather(plan, ids)
     return Segments(ids, tiles)
 
 
 def segment_combine(values, segment_ids, num_segments: int, combine: str,
-                    mask=None):
+                    mask=None, axis=None):
     """Masked segment-reduce of ``values`` [K, ...] by ``segment_ids`` [K];
     invalid lanes contribute the identity, empty segments hold it.  A
     float32 sum accumulates in float64 and rounds once: added one by one in
     float32, a hub's sum of many similar terms drifts by up to its term
-    count times float32's epsilon."""
+    count times float32's epsilon.
+
+    ``axis`` (a :class:`~repro_torch.distributed.MeshAxis`) names the mesh
+    dimension the edge axis of ``values`` is sharded over: this rank's
+    partial then meets the others' in one all-reduce (a float32 sum's
+    partials in float64, before the one rounding)."""
     ident = _identity(combine, values.dtype)
     ids = segment_ids.long()
     if mask is not None:
@@ -111,20 +126,24 @@ def segment_combine(values, segment_ids, num_segments: int, combine: str,
     out = torch.full((num_segments,) + tuple(values.shape[1:]), ident,
                      dtype=values.dtype, device=values.device)
     out.scatter_reduce_(0, ids, values, _REDUCE[combine], include_self=True)
+    if axis is not None:
+        all_reduce(out, combine, axis)
     return out.to(out_dtype)
 
 
 def segment_combine_windows(values, segment_ids, num_segments: int,
-                            combine: str, masks=None):
+                            combine: str, masks=None, axis=None):
     """Batched masked segment-reduce over a shared edge set: ``values``
     [W, K, ...], ``masks`` [W, K], ``segment_ids`` [K] shared.  Returns
-    [W, num_segments, ...] from one scatter over a flattened window axis."""
+    [W, num_segments, ...] from one scatter over a flattened window axis
+    (and with ``axis``, one collective for all W)."""
     W, K = values.shape[:2]
     rows = torch.arange(W, device=values.device)[:, None] * num_segments
     ids = (segment_ids.long()[None, :] + rows).expand(W, K).reshape(-1)
     flat = values.reshape((W * K,) + tuple(values.shape[2:]))
     out = segment_combine(flat, ids, W * num_segments, combine,
-                          mask=None if masks is None else masks.reshape(-1))
+                          mask=None if masks is None else masks.reshape(-1),
+                          axis=axis)
     return out.reshape((W, num_segments) + tuple(values.shape[2:]))
 
 
@@ -227,11 +246,13 @@ def combine_for_plan(
 ):
     """Plan-directed combine.  ``segment_ids`` is a tensor or prepared
     :class:`Segments`; ``use_layout`` (for a raw tensor) asserts the ids are
-    in the layout's edge order, and only then may the tiled kernels run."""
+    in the layout's edge order, and only then may the tiled kernels run.
+    A plan with ``edge_axis`` takes the segment path and one collective."""
     seg = segments_for(plan, segment_ids, use_layout=use_layout)
-    if seg.tiles is not None:
+    axis = None if plan is None else plan.edge_axis
+    if seg.tiles is not None and axis is None:
         return _TILED.combine(plan, values, seg, num_segments, op, mask=mask)
-    return segment_combine(values, seg.ids, num_segments, op, mask=mask)
+    return segment_combine(values, seg.ids, num_segments, op, mask=mask, axis=axis)
 
 
 def combine_windows_for_plan(
@@ -245,13 +266,15 @@ def combine_windows_for_plan(
     use_layout: bool = False,
 ):
     """Batched plan-directed combine: W reductions over one shared edge set,
-    returning [W, num_segments, ...]; same eligibility as
-    :func:`combine_for_plan`."""
+    returning [W, num_segments, ...]; same eligibility (and ``edge_axis``
+    contract) as :func:`combine_for_plan`."""
     seg = segments_for(plan, segment_ids, use_layout=use_layout)
-    if seg.tiles is not None:
+    axis = None if plan is None else plan.edge_axis
+    if seg.tiles is not None and axis is None:
         return _TILED.combine_windows(plan, values, seg, num_segments, op,
                                       masks=masks)
-    return segment_combine_windows(values, seg.ids, num_segments, op, masks=masks)
+    return segment_combine_windows(values, seg.ids, num_segments, op, masks=masks,
+                                   axis=axis)
 
 
 __all__ = [

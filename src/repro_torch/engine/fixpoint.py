@@ -9,6 +9,11 @@ the relax and the combine.
 The loop is a host loop with one ``bool(cond(state))`` sync per round.
 Single-window mode holds [V] state; batched mode holds [Q, V] state whose
 row q solves ``(sources[q], windows[q])`` over one union-window view.
+
+Under a plan with ``edge_axis`` (an edge-sharded solve) every combine ends
+in a collective, so the state ``cond`` reads after a round is the same on
+every rank of the edge group: the ranks run the same rounds and make the
+same collective calls in the same order.
 """
 from __future__ import annotations
 
@@ -193,7 +198,7 @@ class FixpointRunner:
         if not compute_touched:
             return out, None
         touched = touch(valid.to(torch.int32), self.segments.ids,
-                        self.n_vertices, "sum") > 0
+                        self.n_vertices, "sum", axis=self.plan.edge_axis) > 0
         return out, touched
 
     # -- the loop ----------------------------------------------------------

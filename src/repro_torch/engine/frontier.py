@@ -139,10 +139,12 @@ def companion_for_view(from_v, n_vertices: int) -> FrontierView:
 
 def ladder_eligible(plan) -> bool:
     """True when a laddered solve may run: the plan opted in (``ladder >
-    0``).  The JAX package also refuses traced calls and edge-sharded
-    plans; the port has neither, and its dense-only callers take the
-    algorithms' private dense paths instead of asking."""
-    return plan is not None and plan.ladder > 0
+    0``) and the edge axis is unsharded (the sparse gather order is
+    rank-local, and a sparse round's occupancy read would differ across
+    edge ranks).  The JAX package also refuses traced calls; the port has
+    none, and its dense-only callers take the algorithms' private dense
+    paths instead of asking."""
+    return plan is not None and plan.ladder > 0 and plan.edge_axis is None
 
 
 # ---------------------------------------------------------------------------

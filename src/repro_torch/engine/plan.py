@@ -13,7 +13,7 @@ equal: ``xla_segment`` is the masked ``scatter_reduce_`` path here and
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,13 +70,22 @@ class AccessPlan:
     # solves under such a plan descend to frontier-proportional rounds; the
     # batched entry points, ``sweep`` and a serving advance stay dense.
     ladder: int = 0
+    # Distributed engine: the top-K wire budget of the frontier-sparse
+    # exchange (0 = one dense min-reduce of the state per round).
+    exchange_budget: int = 0
+    # The mesh dimension the edge axis of every view under this plan is
+    # sharded over (a ``repro_torch.distributed.MeshAxis``: its name and
+    # process group), or None.  Set only inside an edge-sharded solve
+    # (``dataclasses.replace``): every combine then takes the segment path
+    # and ends with one collective over this dimension.
+    edge_axis: Any = None
 
 
-def _cache_key(method: str, backend: str, budget: int, pvb: int, tile_v: int,
-               block_e: int, n_windows: int, ring_capacity: int,
+def _cache_key(method: str, backend: str, budget: int, pvb: int, exchange: int,
+               tile_v: int, block_e: int, n_windows: int, ring_capacity: int,
                batch_sig: str = "", tier: str = "hot", ladder: int = 0) -> str:
-    """The JAX package's key format; the exchange budget is 0 (``x0``)."""
-    key = f"{method}/{backend}/b{budget}/pv{pvb}/x0/t{tile_v}x{block_e}"
+    """The JAX package's key format."""
+    key = f"{method}/{backend}/b{budget}/pv{pvb}/x{exchange}/t{tile_v}x{block_e}"
     if ring_capacity:
         key += f"/r{ring_capacity}"
     if n_windows:
@@ -102,6 +111,7 @@ def make_plan(
     *,
     budget: int = 0,
     per_vertex_budget: int = 0,
+    exchange_budget: int = 0,
     layout=None,
     n_edges: int = 0,
     tile_v: int = DEFAULT_TILE_V,
@@ -145,12 +155,14 @@ def make_plan(
         n_tiles=int(n_tiles),
         n_edges=int(n_edges),
         cache_key=_cache_key(method, backend, int(budget), int(per_vertex_budget),
-                             int(tile_v), int(block_e), int(n_windows),
-                             int(ring_capacity), tier=str(tier), ladder=int(ladder)),
+                             int(exchange_budget), int(tile_v), int(block_e),
+                             int(n_windows), int(ring_capacity), tier=str(tier),
+                             ladder=int(ladder)),
         n_windows=int(n_windows),
         ring_capacity=int(ring_capacity),
         tier=str(tier),
         ladder=int(ladder),
+        exchange_budget=int(exchange_budget),
     )
 
 
@@ -251,16 +263,12 @@ def plan_query(
     computed against its own carried ring's horizon).
 
     ``ladder`` (>= 0) is the frontier-rung cap the plan carries
-    (:attr:`AccessPlan.ladder`, ``/L{N}`` on the cache key).  The
-    distributed exchange budget is not in the port yet and raises
-    ``NotImplementedError``.
+    (:attr:`AccessPlan.ladder`, ``/L{N}`` on the cache key).
+    ``exchange_budget`` is the distributed engine's top-K wire budget
+    (``x{K}`` on the cache key; 0 is the dense exchange).
     """
     if ladder < 0:
         raise ValueError(f"ladder must be >= 0, got {ladder}")
-    if exchange_budget:
-        raise NotImplementedError(
-            "exchange_budget > 0 (the distributed exchange) is ROADMAP.md "
-            "Queue 1 item 14")
     if access not in ("auto",) + METHODS:
         raise ValueError(f"access must be auto|{'|'.join(METHODS)}, got {access!r}")
     if backend not in BACKENDS:
@@ -342,6 +350,7 @@ def plan_query(
     return make_plan(
         method, backend,
         budget=budget, per_vertex_budget=per_vertex,
+        exchange_budget=int(exchange_budget),
         layout=layout, n_edges=n_edges if layout is not None else 0,
         tile_v=tile_v, block_e=block_e,
         n_windows=n_windows, ring_capacity=ring_capacity, tier=tier,
@@ -370,21 +379,30 @@ def plan_batch(
 
     ``bucketed`` keys the signature on the BUCKETED per-group row
     capacities (the admission ladder) instead of exact counts, so tenant
-    churn inside a bucket replans to the same cache key.  ``shards`` (a
-    query mesh) is not in the port yet and raises
-    ``NotImplementedError``."""
-    if shards is not None:
-        raise NotImplementedError(
-            "plan_batch(shards=...) (sharded serving) is ROADMAP.md Queue 1 item 14")
+    churn inside a bucket replans to the same cache key.
+
+    ``shards`` (the serving mesh's shape) rides the signature too, since a
+    sharded advance pads each group's rows to a per-rank capacity: an int
+    is a 1-D query mesh (``@qD``), an ``(E, D)`` tuple the 2-D edge x query
+    mesh (``@eEqD``); ``(1, D)`` is the 1-D form, whose program it runs.
+    A state carried under one mesh shape therefore never matches a plan
+    made for another."""
     plan = plan_query(g, tger, windows=batch.windows(), model=model,
                       access=access, backend=backend, **kw)
     sig = batch.signature(bucketed=bucketed)
+    if shards is not None:
+        if isinstance(shards, (tuple, list)):
+            e, d = int(shards[0]), int(shards[1])
+            sig += f"@q{d}" if e <= 1 else f"@e{e}q{d}"
+        else:
+            sig += f"@q{int(shards)}"
     return dataclasses.replace(
         plan, batch_sig=sig,
         cache_key=_cache_key(plan.method, plan.backend, plan.budget,
-                             plan.per_vertex_budget, plan.tile_v, plan.block_e,
-                             plan.n_windows, plan.ring_capacity, sig,
-                             tier=plan.tier, ladder=plan.ladder))
+                             plan.per_vertex_budget, plan.exchange_budget,
+                             plan.tile_v, plan.block_e, plan.n_windows,
+                             plan.ring_capacity, sig, tier=plan.tier,
+                             ladder=plan.ladder))
 
 
 def decision_for(

@@ -17,15 +17,26 @@ sliding-window temporal-graph serving (the port of ``repro/launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --graph --daemon \
         --ticks 40 --arrival-rate 0.5 --depart-rate 0.25 [--device cpu]
 
+    # sharded graph / daemon serving: one process per rank, the process
+    # group from torchrun's environment (NCCL on the cards, gloo with
+    # --device cpu); every rank computes, rank 0 prints
+    torchrun --nproc-per-node N -m repro_torch.launch.serve --graph \
+        [--daemon] --shard-queries D [--shard-edges E]
+
 As in the reference the LM mode serves the architecture's reduced config
 (``smoke_cfg``) with random weights from ``--seed``.  Everything runs on
-the first CUDA card unless ``--device`` names another; without a card and
-without ``--device`` it raises.  ``--shard-queries`` / ``--shard-edges``
-(sharded serving) are not in the port yet.
+the first CUDA card unless ``--device`` names another (under torchrun,
+rank r's card is ``LOCAL_RANK``); without a card and without ``--device``
+it raises.  ``--shard-queries D`` shards the tenant axis over D ranks,
+``--shard-edges E`` also the ring's slot axis (an (E, D) mesh); the mesh
+must cover the whole process group, and a flag without a process group of
+that size raises ``ValueError``.  With ``--history-chunks`` the graph and
+daemon modes serve unsharded, as the reference does.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -43,6 +54,24 @@ from repro_torch.serve.engine import (
 )
 
 GRAPH_ALGORITHMS = ("earliest_arrival", "reachability", "bfs", "cc", "pagerank")
+
+
+def _say(*a) -> None:
+    """Print on rank 0 only (every rank of a sharded run computes)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(*a)
+
+
+def _mesh(args, coldstore):
+    """The serving mesh the --shard-* flags ask for (None with a cold
+    store: its history tier is unsharded)."""
+    if coldstore is not None:
+        return None
+    if args.shard_edges:
+        return (args.shard_edges, args.shard_queries or 1)
+    return args.shard_queries
 
 
 def _graph(args):
@@ -96,14 +125,15 @@ def run_graph(args) -> GraphServeStats:
         return QueryBatch.make(specs)
 
     coldstore = _coldstore(args, g, idx)
-    server = GraphBatchServer(g, idx, access="index", coldstore=coldstore)
+    server = GraphBatchServer(g, idx, access="index", coldstore=coldstore,
+                              mesh=_mesh(args, coldstore))
     t0 = time.perf_counter()
     for k in range(args.advances):
         server.advance(make_batch(base0 + k * stride))
     dt = time.perf_counter() - t0
     s = server.stats
     rate = s.rows_served / max(dt, 1e-9)
-    print(
+    _say(
         f"served {s.rows_served} query rows ({s.rows_solved} solved after "
         f"dedup) in {s.advances} advances ({s.cold_advances} cold, "
         f"{s.fused_dispatches} fused dispatches) on {server.devices} "
@@ -122,7 +152,7 @@ def run_graph(args) -> GraphServeStats:
         server.advance(hist)
         dt_hist = time.perf_counter() - t0
         st = coldstore.stats()
-        print(
+        _say(
             f"history: tier={server.state.plan.tier!r} time-travel answered in "
             f"{1e3 * dt_hist:.1f} ms; cold store {st['n_chunks']} chunks "
             f"({st['sealed_slots']} slots sealed, watermark "
@@ -155,7 +185,8 @@ def run_daemon(args) -> GraphServeStats:
         return QuerySpec.make(alg, w, sources=(7 * i) % args.n_vertices)
 
     coldstore = _coldstore(args, g, idx)
-    server = GraphBatchServer(g, idx, access="index", coldstore=coldstore)
+    server = GraphBatchServer(g, idx, access="index", coldstore=coldstore,
+                              mesh=_mesh(args, coldstore))
     live: list = [server.submit(fresh_spec(i)) for i in range(args.tenants)]
     n_spawned = args.tenants
 
@@ -179,7 +210,7 @@ def run_daemon(args) -> GraphServeStats:
 
     s = server.stats
     lat = np.asarray(server.latencies)
-    print(
+    _say(
         f"daemon: {s.ticks} ticks, {s.advances} class advances "
         f"({s.cold_advances} cold, {s.fused_dispatches} fused), "
         f"{s.admissions} admissions / {s.retirements} retirements, "
@@ -187,11 +218,11 @@ def run_daemon(args) -> GraphServeStats:
     )
     if coldstore is not None:
         st = coldstore.stats()
-        print(
+        _say(
             f"cold store: {st['n_chunks']} chunks, watermark "
             f"{st['watermark']}, compaction {st['compaction_ratio']:.2f}x"
         )
-    print(
+    _say(
         f"per-advance latency: p50 {1e3 * np.percentile(lat, 50):.2f} ms, "
         f"p99 {1e3 * np.percentile(lat, 99):.2f} ms "
         f"({len(server.tenants)} tenants live at exit)"
@@ -244,10 +275,12 @@ def main(argv=None):
     ap.add_argument("--n-vertices", type=int, default=2_000)
     ap.add_argument("--n-edges", type=int, default=50_000)
     ap.add_argument("--shard-queries", type=int, default=None,
-                    help="shard the tenant axis over N devices (not in the port)")
+                    help="shard the tenant axis over N ranks (run under "
+                         "torchrun --nproc-per-node N)")
     ap.add_argument("--shard-edges", type=int, default=None,
-                    help="also shard the ring's slot axis over E devices "
-                         "(not in the port)")
+                    help="also shard the ring's slot axis over E ranks "
+                         "(forms an (E, D) edge-query mesh with "
+                         "--shard-queries; needs E*D ranks)")
     ap.add_argument("--history-chunks", type=int, default=None,
                     help="attach a cold store compacting evicted ring "
                          "slots into chunks of N slots; graph mode then "
@@ -271,15 +304,32 @@ def main(argv=None):
     if args.history_spill_dir and not args.history_chunks:
         ap.error("--history-spill-dir needs --history-chunks (it spills "
                  "the cold store's sealed chunks)")
+    own_group = False
     if args.shard_queries or args.shard_edges:
-        raise NotImplementedError(
-            "--shard-queries / --shard-edges (sharded serving) are ROADMAP.md "
-            "Queue 1 item 14")
-    if args.daemon:
-        return run_daemon(args)
-    if args.graph:
-        return run_graph(args)
-    return run_lm(args)
+        import torch.distributed as dist
+
+        from repro_torch.distributed import init_process_group, serve_mesh
+
+        device = resolve_device(args.device)
+        if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            # torchrun's environment: NCCL on the cards, gloo on the CPU
+            init_process_group(device)
+            own_group = True
+    try:
+        if args.shard_queries or args.shard_edges:
+            # the mesh must cover the process group, with or without a cold
+            # store (which turns the mesh off)
+            serve_mesh(args.shard_edges or 1, args.shard_queries or 1, device=device)
+        if args.daemon:
+            return run_daemon(args)
+        if args.graph:
+            return run_graph(args)
+        return run_lm(args)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
-"""Window-query sweeps, multi-tenant incremental serving and the graph
-serving daemon."""
+"""Window-query sweeps, multi-tenant incremental serving (sharded over a
+``torch.distributed`` mesh with ``mesh=``) and the graph serving daemon."""
 from repro_torch.serve.window_sweep import (  # noqa: F401
     ALGORITHMS,
     QueryBatch,
     QuerySpec,
     SweepState,
     dispatch_log,
+    query_mesh,
     serve_batch,
     sliding_windows,
     sweep,

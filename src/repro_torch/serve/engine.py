@@ -209,7 +209,12 @@ class GraphBatchServer:
     VERBATIM (``tick`` never re-anchors it) and serve every tick as the
     ``HISTORY_CLASS`` through the cold tier of the server's ``coldstore``,
     unbucketed; the repeat serve of an unchanged pinned window is the noop
-    path.  ``mesh`` (sharded serving) is not in the port yet.
+    path.
+
+    ``mesh`` (``D``, ``(E, D)`` or a ``DeviceMesh``) serves every hot chain
+    sharded, as ``serve_batch(mesh=...)`` does: every rank of the process
+    group runs the same server on the same requests and gets every row.
+    The history class stays unsharded.
     """
 
     #: EWMA smoothing for the per-class admission arrival rate (rows/tick)
@@ -225,11 +230,8 @@ class GraphBatchServer:
                  backend: str = "xla_segment", plan=None, mesh=None,
                  warm_start: bool = False, admission: Optional[str] = None,
                  coldstore=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "GraphBatchServer(mesh=...) (sharded serving) is ROADMAP.md "
-                "Queue 1 item 14")
         self.graph = graph
+        self.mesh = mesh
         self.tger = tger
         self.access = access
         self.backend = backend
@@ -272,8 +274,8 @@ class GraphBatchServer:
                 results, self.state = ws.serve_batch(
                     self.graph, batch, self.tger, state=self.state,
                     access=self.access, backend=self.backend, plan=self.plan,
-                    warm_start=self.warm_start, admission=self.admission,
-                    coldstore=self.coldstore)
+                    warm_start=self.warm_start, mesh=self.mesh,
+                    admission=self.admission, coldstore=self.coldstore)
             except BaseException:
                 # the carried state may have been consumed before the raise:
                 # drop it, so the retry runs cold
@@ -343,8 +345,8 @@ class GraphBatchServer:
 
         t0 = time.perf_counter()
         # the history class serves pinned windows through the cold tier,
-        # which refuses bucketed admission; every class carries the store
-        # so hot index advances compact
+        # which refuses bucketed admission and the mesh; every class carries
+        # the store so hot index advances compact
         history = cls == self.HISTORY_CLASS
         with ws.dispatch_log() as log:
             try:
@@ -353,6 +355,7 @@ class GraphBatchServer:
                     state=self._class_states.get(cls),
                     access=self.access, backend=self.backend, plan=self.plan,
                     admission=None if history else "bucketed",
+                    mesh=None if history else self.mesh,
                     bucket_headroom=0 if history else self.bucket_headroom(cls),
                     coldstore=self.coldstore)
             except BaseException:
@@ -454,9 +457,10 @@ class GraphBatchServer:
 
     @property
     def devices(self) -> int:
-        """Devices the server runs on: one (sharded serving is not in the
-        port)."""
-        return 1
+        """Devices (ranks) the batch-mode chain runs on: the size of its
+        state's mesh, one when unsharded."""
+        return 1 if self.state is None or self.state.mesh is None else (
+            int(self.state.mesh.size()))
 
 
 __all__ = ["Request", "EngineStats", "ServeEngine", "GraphServeStats",

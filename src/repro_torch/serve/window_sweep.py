@@ -26,7 +26,16 @@ plan; float rows (pagerank, betweenness) match up to summation order.
 
 ``admission="bucketed"`` pads every group's rows to a power-of-two bucket
 and carries row assignment as int32 gather maps, so tenant churn inside a
-bucket keeps every shape (the serving daemon's mode).  ``coldstore=`` seals
+bucket keeps every shape (the serving daemon's mode).
+
+``mesh=D`` (a 1-D query mesh) or ``mesh=(E, D)`` (the 2-D edge x query
+mesh) shards the serving: every rank of the process group calls
+``serve_batch`` with the same batch, each solves its contiguous chunk of
+every group's padded new rows under its own convergence loop, and the
+chunks are all-gathered along the query dimension, so every rank ends the
+advance with every row.  At E > 1 the index ring itself is split into E
+contiguous slot chunks (a delta lands only on its owning rank) and every
+combine of a solve ends with one collective across the edge dimension.  ``coldstore=`` seals
 the positions an index ring evicts into a :class:`~repro_torch.core.
 coldstore.ColdStore` and serves windows below the hot horizon from it (the
 cold tier), bit-identical to a full-history index solve.
@@ -67,8 +76,11 @@ from repro_torch.core.algorithms.reachability import _overlaps_reachability_over
 from repro_torch.core.edgemap import (
     INT_INF,
     EdgeView,
+    _entering,
+    _scatter_entering,
     advance_hybrid_ring_fields,
     advance_index_ring_fields,
+    ring_positions,
     ring_view_for_plan,
 )
 from repro_torch.core.temporal_graph import TemporalGraph
@@ -78,6 +90,15 @@ from repro_torch.core.tger import (
     window_positions_host,
 )
 from repro_torch.device import to_numpy
+from repro_torch.distributed.collectives import all_gather, all_reduce, mesh_axis
+from repro_torch.distributed.query_shard import (
+    mesh_shape,
+    query_mesh,
+    replicate,
+    replicated_arrays,
+    row_partition,
+    serve_mesh,
+)
 from repro_torch.engine.frontier import ladder_eligible
 from repro_torch.engine.plan import (
     AccessPlan,
@@ -465,6 +486,7 @@ class SweepState:
                                  # exact-shape schedule mode)
     last_schedule: Any = None    # schedule of the last fused advance (None
                                  # after cold/noop/reorder)
+    mesh: Any = None             # serving DeviceMesh of a sharded stream
 
     @property
     def algorithm(self) -> str:
@@ -521,8 +543,70 @@ def _gather_solved(sub, solve_map, n_outputs: int):
     return tuple(s[sm] for s in sub)
 
 
+def _place_ring(edges, mesh):
+    """The ring view under a serving mesh: whole on every rank of a 1-D
+    query mesh; on a 2-D edge x query mesh each rank keeps its edge
+    coordinate's contiguous slot chunk, so edge rank e owns global slots
+    [e*C/E, (e+1)*C/E) and the positionally stable slot order is the shard
+    boundary."""
+    e_sh, _ = mesh_shape(mesh)
+    if e_sh == 1:
+        return replicate(edges, mesh)
+    C = edges.src.shape[0]
+    if C % e_sh:
+        raise ValueError(
+            f"ring capacity {C} does not divide across {e_sh} edge shards: "
+            f"capacity rungs are powers of two, so use a power-of-two "
+            f"edge-shard count")
+    ax = mesh_axis(mesh, mesh.mesh_dim_names[0])
+    c = C // e_sh
+    return EdgeView(*(t[ax.index * c:(ax.index + 1) * c].clone() for t in edges))
+
+
+def _edge_plan(plan, mesh):
+    """``plan`` with its edge axis set when ``mesh`` shards the edges."""
+    if mesh is None or len(mesh.mesh_dim_names) < 2:
+        return plan
+    return dataclasses.replace(plan, edge_axis=mesh_axis(mesh, mesh.mesh_dim_names[0]))
+
+
+def _take_rows(x, sl):
+    return tuple(a[sl] for a in x) if isinstance(x, tuple) else x[sl]
+
+
+def _solve_rows_sharded(entry, params, plan, n_vertices, mesh, edges, windows,
+                        sources, init):
+    """One group's new-row solve with the (padded) row axis sharded over the
+    mesh's query dimension: this rank solves only its contiguous row chunk,
+    under its own convergence loop (a rank whose rows settle early stops
+    early), then the chunks are all-gathered along the query dimension, so
+    every rank holds every solved row.
+
+    Under a 2-D edge x query mesh the view is this rank's slot chunk and the
+    plan's ``edge_axis`` makes every combine end with one collective across
+    the edge dimension.  The post-collective state is the same on every
+    edge rank of a row chunk, so they run the same rounds in lockstep while
+    the query dimension keeps local convergence.  ``last_rounds`` is the
+    max over the query dimension."""
+    row_ax = mesh_axis(mesh, mesh.mesh_dim_names[-1])
+    cap = windows.shape[0] // row_ax.size
+    sl = slice(row_ax.index * cap, (row_ax.index + 1) * cap)
+    sub, rounds = entry.solve(
+        edges, windows[sl], None if sources is None else sources[sl],
+        _edge_plan(plan, mesh), n_vertices,
+        None if init is None else _take_rows(init, sl), dict(params), False)
+    subs = tuple(all_gather(x, row_ax)
+                 for x in (sub if isinstance(sub, tuple) else (sub,)))
+    if rounds >= 0:
+        # only EA counts its rounds (the rest report -1 on every rank); the
+        # read is one more host sync after the loop's own
+        r = torch.tensor([rounds], dtype=torch.int32, device=subs[0].device)
+        rounds = int(all_reduce(r, "max", row_ax)[0])
+    return (subs[0] if entry.n_outputs == 1 else subs), rounds
+
+
 def _solve_groups(edges, plan, n_vertices, schedule, prev_results,
-                  new_windows, new_sources, inits, maps=None):
+                  new_windows, new_sources, inits, maps=None, mesh=None):
     """Every group's solve (of only its genuinely new rows) and row
     assembly over the just-advanced view.  ``schedule`` holds (algorithm,
     params, row_map, new_pos, solve_map) per group; ``solve_map`` (None =
@@ -536,7 +620,19 @@ def _solve_groups(edges, plan, n_vertices, schedule, prev_results,
     the schedule keys only the padded capacities and a tenant admitted or
     retired inside the bucket changes no shape.  Assembly is one gather
     over the concatenated (previous buffer ‖ freshly solved) row pool; pad
-    slots replicate the last real row."""
+    slots replicate the last real row.
+
+    With a ``mesh`` every group's solve row-shards over its query dimension
+    (:func:`_solve_rows_sharded`)."""
+
+    def solve(entry, params, gi):
+        if mesh is not None:
+            return _solve_rows_sharded(entry, params, plan, n_vertices, mesh,
+                                       edges, new_windows[gi], new_sources[gi],
+                                       inits[gi])
+        return entry.solve(edges, new_windows[gi], new_sources[gi], plan,
+                           n_vertices, inits[gi], dict(params), False)
+
     out, rounds_out = [], []
     for gi, entry_s in enumerate(schedule):
         algorithm, params = entry_s[0], entry_s[1]
@@ -545,9 +641,7 @@ def _solve_groups(edges, plan, n_vertices, schedule, prev_results,
         if entry_s[2] == "bucket":
             prevs = prev if isinstance(prev, tuple) else (prev,)
             if entry_s[4]:
-                sub, rounds = entry.solve(
-                    edges, new_windows[gi], new_sources[gi], plan, n_vertices,
-                    inits[gi], dict(params), False)
+                sub, rounds = solve(entry, params, gi)
                 subs = sub if isinstance(sub, tuple) else (sub,)
                 pool = subs if prev is None else tuple(
                     torch.cat([p, s]) for p, s in zip(prevs, subs))
@@ -559,9 +653,7 @@ def _solve_groups(edges, plan, n_vertices, schedule, prev_results,
             continue
         row_map, new_pos, solve_map = entry_s[2], entry_s[3], entry_s[4]
         if new_pos:
-            sub, rounds = entry.solve(
-                edges, new_windows[gi], new_sources[gi], plan, n_vertices,
-                inits[gi], dict(params), False)
+            sub, rounds = solve(entry, params, gi)
             if solve_map is not None:
                 sub = _gather_solved(sub, solve_map, entry.n_outputs)
             res = sub if prev is None else _assemble(
@@ -578,6 +670,27 @@ _ADVANCE_RING = {
     "index": advance_index_ring_fields,
     "hybrid": advance_hybrid_ring_fields,
 }
+
+
+def _advance_ring_sharded(mesh, fields, perm, edges: EdgeView, lo_prev: int,
+                          lo_new: int, hi_new: int, *, capacity: int) -> EdgeView:
+    """Edge-sharded index-ring delta advance, in place: edge rank e owns the
+    slot chunk [e*C/E, (e+1)*C/E), so of the entering positions it writes
+    only those whose slot ``p mod C`` is its own, at the local slot, and
+    recomputes its chunk of the validity mask.  Per slot this equals the
+    unsharded ``advance_index_ring_fields``: the slot of a position does not
+    depend on the layout, the chunking only decides which rank holds it."""
+    ax = mesh_axis(mesh, mesh.mesh_dim_names[0])
+    c_local = capacity // ax.size
+    base = ax.index * c_local
+    dev = edges.src.device
+    enter = _entering(lo_prev, lo_new, capacity, dev)
+    gslot = torch.remainder(enter, capacity)
+    mine = (gslot >= base) & (gslot < base + c_local)
+    _scatter_entering(fields, perm, edges, enter[mine], gslot[mine] - base)
+    edges.mask.copy_(
+        ring_positions(lo_new, capacity, dev)[base:base + c_local] < int(hi_new))
+    return edges
 
 
 # ---------------------------------------------------------------------------
@@ -646,6 +759,7 @@ def _advance(
     plan_arg: Optional[AccessPlan],
     plan_builder: Callable[[], AccessPlan],
     warm_start: bool,
+    mesh=None,
     bucketed: bool = False,
     bucket_headroom: int = 0,
     coldstore=None,
@@ -666,7 +780,14 @@ def _advance(
     ``coldstore`` seals the positions an index ring evicts (after the
     advance's device work is enqueued); ``tier`` other than ``"hot"``
     stitches the view from the store instead of building it on the
-    device."""
+    device.
+
+    With a serving ``mesh`` the ring is placed once at the cold build
+    (whole, or this rank's slot chunk on a 2-D mesh), the cold solves run
+    every row on every rank (with the edge collectives on a 2-D mesh, as
+    the reference solves its cold rows over the globally sharded ring), and
+    an advance row-shards every group's new rows over the query
+    dimension."""
     if state is not None and state.consumed:
         raise RuntimeError(
             "this SweepState was consumed by an earlier advance: its ring "
@@ -678,6 +799,7 @@ def _advance(
     )
     n_rows_total = sum(len(s) for _, s, _ in groups)
     dev = g.device
+    e_sh, d_sh = mesh_shape(mesh)
 
     caps: tuple = ()
     if bucketed:
@@ -701,7 +823,7 @@ def _advance(
             last_advance=advance, n_solved=n_solved, warm_applied=warm_applied,
             last_rounds=rounds[0] if len(rounds) == 1 else tuple(rounds),
             n_solved_unique=n_unique, group_caps=caps,
-            last_schedule=last_schedule,
+            last_schedule=last_schedule, mesh=mesh,
         )
 
     def cold(prev_plan=None):
@@ -730,6 +852,11 @@ def _advance(
                 # history: seal it (host work; the first note backfills
                 # from position 0)
                 coldstore.note_eviction(lo)
+        if mesh is not None and p.method != "scan":
+            # placed once at the cold build; the scan view aliases the
+            # graph's own arrays and is never written
+            edges = _place_ring(edges, mesh)
+        p_solve = _edge_plan(p, mesh)
         results, rounds, n_unique = [], [], 0
         for gi, (key, sources, wins) in enumerate(groups):
             entry = _ALGOS[key[0]]
@@ -737,8 +864,8 @@ def _advance(
             u_sources, u_windows, inverse = dedup_rows(sources, wins)
             n_unique += len(u_sources)
             src_dev = None if entry.source_free else _sources_tensor(u_sources, dev)
-            res, rnd = entry.solve(edges, u_windows, src_dev, p, g.n_vertices,
-                                   None, dict(key[1]), ladder_eligible(p))
+            res, rnd = entry.solve(edges, u_windows, src_dev, p_solve, g.n_vertices,
+                                   None, dict(key[1]), ladder_eligible(p_solve))
             out_map = tuple(inverse)
             if bucketed:
                 # pad to the bucket capacity with the last real row (a pad
@@ -823,6 +950,16 @@ def _advance(
                 init = _group_warm(key, warm_start, u_sources, u_windows, prev,
                                    g.n_vertices)
                 any_warm |= init is not None
+                if mesh is not None:
+                    # pad-and-mask row partition over the QUERY dimension
+                    # (the edge dimension replicates rows): real row j keeps
+                    # index j, so ``inverse`` also drops the padding
+                    _, pad_map = row_partition(len(u_sources), d_sh)
+                    u_windows = u_windows[pad_map]
+                    u_sources = [u_sources[j] for j in pad_map]
+                    if init is not None:
+                        init = _take_rows(init, torch.as_tensor(
+                            pad_map, dtype=torch.int64, device=dev))
                 if inverse != tuple(range(len(u_sources))):
                     solve_map = inverse
                 new_windows.append(u_windows)
@@ -875,6 +1012,14 @@ def _advance(
                 # the new-row solve pads to the FULL bucket capacity, so
                 # churn inside the bucket never changes the solve's shape
                 K = cap
+                if mesh is not None:
+                    # bucket-aligned partition: each rank's chunk snaps up to
+                    # the bucket ladder value of ceil(cap / D), so chunk
+                    # boundaries land on bucket multiples (K == cap for a
+                    # power-of-two D <= cap)
+                    chunk, _ = row_partition(
+                        cap, d_sh, align=bucket_capacity(-(-cap // d_sh)))
+                    K = chunk * d_sh
                 if K != m_u:
                     pad_map = list(range(m_u)) + [m_u - 1] * (K - m_u)
                     u_windows = u_windows[pad_map]
@@ -898,16 +1043,21 @@ def _advance(
                 tuple(new_sources), tuple(inits), tuple(maps), False, n_unique)
 
     built = build_schedule_bucketed if bucketed else build_schedule
+    fields = (g.src, g.dst, g.t_start, g.t_end, g.weight)
+    if mesh is not None:
+        fields = replicated_arrays(mesh, *fields)
+    shard_tag = ("" if mesh is None
+                 else f"@q{d_sh}" if e_sh == 1 else f"@e{e_sh}q{d_sh}")
 
     if p.method == "scan":
         (schedule, prev_results, new_windows, new_sources, inits, maps,
          any_warm, n_unique) = built()
-        _note("fused:scan")
+        _note(f"fused:scan{shard_tag}")
         state.consumed = True
         # the scan "ring" is the graph's own arrays: solved over, never written
         results, rounds = _solve_groups(state.edges, p, g.n_vertices, schedule,
                                         prev_results, new_windows, new_sources,
-                                        inits, maps)
+                                        inits, maps, mesh=mesh)
         return results, freeze(
             p, state.edges, -1, -1, 0, results, "reuse", total_new, any_warm,
             rounds, n_unique=n_unique, last_schedule=schedule)
@@ -928,19 +1078,25 @@ def _advance(
         if shift < 0 or shift > C or hi_new - lo_new > C:
             # slid backwards or the ring no longer covers
             return cold(prev_plan=p)
-        fields = (g.src, g.dst, g.t_start, g.t_end, g.weight)
         perm = (tger.perm_by_start if p.method == "index"
                 else tger.heavy_perm_by_start)
+        if mesh is not None:
+            (perm,) = replicated_arrays(mesh, perm)
         (schedule, prev_results, new_windows, new_sources, inits, maps,
          any_warm, n_unique) = built()
-        _note(f"fused:{p.method}")
+        _note(f"fused:{p.method}{shard_tag}")
         state.consumed = True
         # the entering positions are written into the carried ring in place
-        edges = _ADVANCE_RING[p.method](fields, perm, state.edges, state.lo,
-                                        lo_new, hi_new, capacity=C)
+        # (on a 2-D mesh only by the rank that owns their slots)
+        if e_sh > 1:
+            edges = _advance_ring_sharded(mesh, fields, perm, state.edges,
+                                          state.lo, lo_new, hi_new, capacity=C)
+        else:
+            edges = _ADVANCE_RING[p.method](fields, perm, state.edges, state.lo,
+                                            lo_new, hi_new, capacity=C)
         results, rounds = _solve_groups(edges, p, g.n_vertices, schedule,
                                         prev_results, new_windows, new_sources,
-                                        inits, maps)
+                                        inits, maps, mesh=mesh)
         if coldstore is not None and p.method == "index":
             # compaction hook: after the advance's device work is enqueued,
             # the positions this slide evicted ([state.lo, lo_new)) seal on
@@ -958,12 +1114,31 @@ def _advance(
 # ---------------------------------------------------------------------------
 
 _SERVE_COMBOS = (
-    "supported serve_batch combinations: admission None | 'bucketed'; "
-    "warm_start=True only with admission=None; coldstore= (tiered history) "
-    "requires a TGER, and a below-horizon (cold/split tier) batch "
-    "additionally requires admission=None and warm_start=False; mesh= is "
-    "not in the port (ROADMAP.md Queue 1 item 14)"
+    "supported serve_batch combinations: mesh None | int D | (E, D) tuple | "
+    "DeviceMesh (over the whole process group); admission None | "
+    "'bucketed' (composes with any mesh shape); warm_start=True only with "
+    "admission=None; edge-sharded meshes (E > 1) require the index access "
+    "method (a TGER index and access='auto'|'index' / an index plan=); "
+    "coldstore= (tiered history) requires a TGER, and a below-horizon "
+    "(cold/split tier) batch additionally requires admission=None, "
+    "warm_start=False, mesh=None"
 )
+
+
+def _serving_mesh(mesh, device):
+    """A ``mesh=`` argument as a DeviceMesh on ``device``'s type: an int is
+    a 1-D query mesh, an ``(E, D)`` tuple the 2-D edge x query mesh."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, (tuple, list)):
+        mesh = serve_mesh(int(mesh[0]), int(mesh[1]), device=device)
+    elif not hasattr(mesh, "mesh_dim_names"):
+        mesh = query_mesh(int(mesh), device=device)
+    if mesh.device_type != torch.device(device).type:
+        raise ValueError(
+            f"the mesh runs on {mesh.device_type!r} but the graph lives on "
+            f"{torch.device(device).type!r}; " + _SERVE_COMBOS)
+    return mesh
 
 
 def _history_tier(tger, union, state, coldstore, plan_arg, access) -> str:
@@ -1051,13 +1226,42 @@ def serve_batch(
     ``ladder`` sets the frontier-rung cap on the batch plan (it rides the
     cache key, so a chain keeps the ladder it cold-started with): the cold
     solves run through the frontier ladder (bit-identical rows), and a
-    steady advance keeps its dense solves.  ``mesh`` is not in the port yet
-    and raises ``NotImplementedError`` before any state is consumed."""
+    steady advance keeps its dense solves.  Edge-sharded solves ignore it.
+
+    ``mesh`` opts into SHARDED serving over the process group: every rank
+    calls ``serve_batch`` with the same arguments.  ``mesh=D`` (or a 1-D
+    ``DeviceMesh`` over ``"model"``) partitions every group's new rows into
+    D contiguous chunks, each rank solving its chunk under its own
+    convergence loop, then all-gathers them, so every rank returns every
+    row.  ``mesh=(E, D)`` (or a ``("data", "model")`` mesh) also splits the
+    index ring into E slot chunks, the delta landing only on the owning
+    rank, with one collective per combine across the edge dimension; it
+    needs a TGER and the index method.  ``(1, D)`` is the 1-D mesh.
+    Integer rows are bit-identical to the unsharded engine; float rows
+    (pagerank, betweenness) cross a sum at E > 1 and match allclose.  A
+    carried state is bound to its mesh: a serve under another mesh (or
+    none) falls cold without consuming it.  A mesh whose size is not the
+    process group's world size raises ``ValueError`` before any state is
+    consumed."""
     if admission not in (None, "bucketed"):
         raise ValueError(f"unknown admission mode {admission!r}; " + _SERVE_COMBOS)
-    if mesh is not None:
-        raise NotImplementedError(
-            "serve_batch(mesh=...) (sharded serving) is ROADMAP.md Queue 1 item 14")
+    mesh = _serving_mesh(mesh, g.device)
+    e_sh, _ = mesh_shape(mesh)
+    if e_sh > 1:
+        # every check here fires before the carried state can be consumed
+        if tger is None:
+            raise ValueError(
+                "an edge-sharded mesh (E > 1) requires a TGER index: the "
+                "ring's slot chunks are the shard boundaries; " + _SERVE_COMBOS)
+        if plan is not None and plan.method != "index":
+            raise ValueError(
+                f"an edge-sharded mesh (E > 1) requires an index plan, got "
+                f"method={plan.method!r}; " + _SERVE_COMBOS)
+        if access not in ("auto", "index"):
+            raise ValueError(
+                f"an edge-sharded mesh (E > 1) requires access='index', got "
+                f"{access!r}; " + _SERVE_COMBOS)
+        access = "index"
     bucketed = admission == "bucketed"
     if bucketed and warm_start:
         raise ValueError(
@@ -1073,17 +1277,18 @@ def serve_batch(
     ]
     if state is not None and (
         state.graph_ref is not g.src
+        or state.mesh != mesh
         or bool(state.group_caps) != bucketed
         or (plan is not None and plan.cache_key != state.plan.cache_key)
     ):
         state = None
     tier = _history_tier(tger, batch.union(), state, coldstore, plan, access)
     if tier != "hot":
-        if bucketed or warm_start:
+        if bucketed or warm_start or mesh is not None:
             raise ValueError(
                 f"a below-horizon batch (tier={tier!r}) serves through the "
-                f"cold tier, which supports only admission=None and "
-                f"warm_start=False; " + _SERVE_COMBOS)
+                f"cold tier, which supports only admission=None, "
+                f"warm_start=False, mesh=None; " + _SERVE_COMBOS)
         access = "index"
         if state is not None and state.plan.tier != tier:
             state = None    # a tier switch never consumes the carried state
@@ -1101,10 +1306,11 @@ def serve_batch(
             groups = [groups[i] for i in order]
     results, new_state = _advance(
         g, tger, groups, state, plan_arg=plan,
-        plan_builder=lambda: plan_batch(g, tger, batch, access=access,
-                                        backend=backend, bucketed=bucketed,
-                                        tier=tier, ladder=int(ladder)),
-        warm_start=warm_start, bucketed=bucketed,
+        plan_builder=lambda: plan_batch(
+            g, tger, batch, access=access, backend=backend,
+            shards=None if mesh is None else mesh_shape(mesh),
+            bucketed=bucketed, tier=tier, ladder=int(ladder)),
+        warm_start=warm_start, mesh=mesh, bucketed=bucketed,
         bucket_headroom=bucket_headroom, coldstore=coldstore, tier=tier)
     if order is not None:
         inv = [0] * len(order)
@@ -1136,8 +1342,9 @@ def sweep_incremental(
     ``serve_batch`` drives.
 
     Returns ``(results, state)``, ``results`` shaped like :func:`sweep`'s.
-    A state from another graph / source / algorithm / kwargs / plan, or a
-    bucketed one, is not reused and not consumed (a cold start).  Index and
+    A state from another graph / source / algorithm / kwargs / plan, a
+    bucketed or a sharded one, is not reused and not consumed (a cold
+    start).  Index and
     hybrid plans advance their ring by the entering positions; scan plans
     reuse the full view.  ``warm_start=True``, ``ladder`` and ``coldstore``
     as in :func:`serve_batch` (a below-horizon sweep refuses
@@ -1167,6 +1374,7 @@ def sweep_incremental(
         state is not None
         and state.group_keys == (key,)
         and state.graph_ref is g.src
+        and state.mesh is None            # sharded states belong to serve_batch
         and not state.group_caps          # bucketed states: padded buffers
         and all(s == src for s in state.group_sources[0])
         and (plan is None or plan.cache_key == state.plan.cache_key)
@@ -1199,6 +1407,7 @@ __all__ = [
     "SweepState",
     "QueryBatch",
     "QuerySpec",
+    "query_mesh",
     "sliding_windows",
     "dispatch_log",
     "ALGORITHMS",

@@ -23,7 +23,7 @@ from repro_torch.core.tger import window_positions_host
 from repro_torch.engine import QueryBatch, QuerySpec, plan_query
 from repro_torch.serve import GraphBatchServer, serve_batch
 from repro_torch.serve import window_sweep as ws
-from test_torch_common import as_np, jgen, jtger, tgen, ttger
+from test_torch_common import as_np, jgen, jtger, one_rank_group, tgen, ttger
 
 COLD_SOAK = 16
 FLOAT_ALGS = ("pagerank", "betweenness")
@@ -368,9 +368,18 @@ def test_cold_tier_refuses_fused_only_combos_before_state():
     for kw in (dict(admission="bucketed"), dict(warm_start=True)):
         with pytest.raises(ValueError, match="cold tier"):
             serve_batch(g, hist, idx, access="index", coldstore=cs, **kw)
-    # the mesh is not in the port: it raises before the tier is looked at
-    with pytest.raises(NotImplementedError, match="item 14"):
-        serve_batch(g, hist, idx, access="index", coldstore=cs, mesh=1)
+    # a below-horizon batch refuses any mesh with the reference's
+    # ValueError (the mesh needs a process group: one rank here)
+    with one_rank_group():
+        with pytest.raises(ValueError, match="cold tier.*mesh=None"):
+            serve_batch(g, hist, idx, access="index", coldstore=cs, mesh=1)
+    _, _, _, _, jg, ji = _case()
+    jcs = JColdStore(jg, ji, chunk_slots=256)
+    _hot_chain(jserve, jg, ji, jcs)
+    jhist = je.QueryBatch.make(
+        [je.QuerySpec.make("cc", (t_min + span // 16, t_min + span // 8))])
+    with pytest.raises(ValueError, match="cold tier.*mesh=None"):
+        jserve.serve_batch(jg, jhist, ji, access="index", coldstore=jcs, mesh=1)
     with pytest.raises(ValueError, match="TGER"):
         serve_batch(g, hist, None, coldstore=cs)
     # none of those raises consumed the hot chain's state

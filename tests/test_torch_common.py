@@ -5,10 +5,14 @@ The counterpart of a weight converter is therefore: build both packages'
 graphs from ONE numpy edge list, and compare the port's structures with the
 reference's field by field through ``np.asarray``.
 """
+import contextlib
 import dataclasses
+import os
+import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro.core  # noqa: F401  (the JAX package must import core before engine)
 import repro.core.temporal_graph as jtg
@@ -124,3 +128,19 @@ def assert_same(want, got):
     assert a.shape == b.shape, (a.shape, b.shape)
     assert a.dtype == b.dtype, (a.dtype, b.dtype)
     assert (a == b).all()
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A gloo process group of world size 1 in this process (the port's
+    ``mesh=1`` / ``(1, 1)`` paths run in-process on it), destroyed on exit
+    so that no later test in the worker sees it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        from repro_torch.distributed import init_process_group
+
+        init_process_group(CPU, init_method="file://" + os.path.join(tmp, "store"),
+                           world_size=1, rank=0)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()

@@ -396,6 +396,80 @@ def test_serve_batch_on_card_matches_cpu(cuda):
     assert all(c["segment_min_tiles"] > 0 and c["segment_spmm_tiles"] == 10 for c in c1)
 
 
+@pytest.fixture
+def nccl_rank(cuda, tmp_path):
+    """A one-rank NCCL process group in this process (the sharded paths run
+    their collectives on the card), destroyed afterwards."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_process_group
+
+    init_process_group(cuda, init_method=f"file://{tmp_path}/store", world_size=1,
+                       rank=0)
+    yield cuda
+    dist.destroy_process_group()
+
+
+def test_distributed_ea_on_card_matches_earliest_arrival(nccl_rank):
+    """The distributed engine on a (1, 1) ("data", "model") NCCL mesh: the
+    scan, index-budget (per-shard sorted) and top-K exchange EA equal the
+    port's unsharded earliest_arrival on the card, bit for bit."""
+    from repro_torch.distributed import graph_engine as ge
+    from repro_torch.distributed import make_mesh
+    from repro_torch.engine.plan import make_plan
+
+    g, idx, win, _ = _small_graph(nccl_rank)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    sources = [0, 1, 2, 3]
+    ref = torch.stack([earliest_arrival(g, s, win, idx) for s in sources])
+    arr0 = torch.full((4, g.n_vertices), tem.INT_INF, dtype=torch.int32, device=nccl_rank)
+    arr0[torch.arange(4), torch.tensor(sources)] = win[0]
+    edges = ge.shard_edges(mesh, g.src, g.dst, g.t_start, g.t_end)
+    evalid = ge.shard_edges(mesh, torch.ones(g.n_edges, dtype=torch.bool))[0]
+    srt = ge.sort_edges_by_time_per_shard(mesh, g.src, g.dst, g.t_start, g.t_end)
+    for plan, arrays, valid, sort in (
+            (None, edges, evalid, False),
+            (make_plan("index", budget=1 << 15), srt[:4], srt[4], True),
+            (make_plan("scan", exchange_budget=64), edges, evalid, False)):
+        out = ge.run_distributed_ea(mesh, arr0, arrays, valid, win, max_rounds=200,
+                                    plan=plan, edges_time_sorted=sort)
+        assert out.is_cuda and torch.equal(out, ref)
+
+
+def test_query_sharded_tiled_serve_on_card_matches_unsharded(nccl_rank):
+    """Three advances of a multi-tenant batch on a tiled scan plan with
+    ``mesh=1`` (NCCL): the rows equal the unsharded chain's (PageRank within
+    its tolerance), and K1 and K3 launch inside every sharded advance."""
+    g, idx, _, _ = _small_graph(nccl_rank)
+    t_hi = int(g.t_end.max())
+    width = (t_hi - int(g.t_start.min())) // 10
+    runs = []
+    for mesh in (None, 1):
+        state, out, counts = None, [], []
+        for step in range(3):
+            wins = sliding_windows(t_hi - (2 - step) * width // 4, width, width // 4, 3)
+            batch = QueryBatch.make(
+                [QuerySpec.make("earliest_arrival", tuple(w), sources=[0, 1]) for w in wins]
+                + [QuerySpec.make("bfs", tuple(wins[0]), sources=0),
+                   QuerySpec.make("cc", tuple(wins[1])),
+                   QuerySpec.make("pagerank", tuple(wins[0]), n_iters=10)])
+            reset_launch_counts()
+            res, state = serve_batch(g, batch, idx, state=state, access="scan",
+                                     backend="pallas_tiled", mesh=mesh)
+            torch.cuda.synchronize()
+            counts.append(launch_counts())
+            out.append(res)
+        runs.append((out, counts))
+    (o0, _), (o1, c1) = runs
+    for r0, r1 in zip(o0, o1):
+        for x, y in zip(r0[:3], r1[:3]):
+            for u, v in zip(x if isinstance(x, tuple) else (x,),
+                            y if isinstance(y, tuple) else (y,)):
+                assert torch.equal(u, v)
+        torch.testing.assert_close(r1[3], r0[3], rtol=1e-5, atol=1e-7)
+    assert all(c["segment_min_tiles"] > 0 and c["segment_spmm_tiles"] == 10 for c in c1)
+
+
 def test_index_ring_advance_on_card_matches_cold_build(cuda):
     g, idx, _, _ = _small_graph(cuda)
     t_hi = int(g.t_end.max())

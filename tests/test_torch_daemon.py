@@ -31,7 +31,7 @@ from repro_torch.engine import DEFAULT_COST_CLASS, bucket_capacity
 from repro_torch.launch import serve as tlaunch
 from repro_torch.serve import GraphBatchServer, serve_batch
 from repro_torch.serve import window_sweep as ws
-from test_torch_common import as_np, jgen, jtger, tgen, ttger
+from test_torch_common import as_np, jgen, jtger, one_rank_group, tgen, ttger
 
 DAEMON_SOAK = 24
 ALGS = ("earliest_arrival", "reachability", "bfs", "cc", "pagerank")
@@ -126,12 +126,21 @@ def test_bucketed_results_are_padded_to_the_bucket_capacity():
 
 def test_bucketed_rejects_bad_combos():
     """The unsupported combinations raise a ValueError listing the
-    supported ones; the mesh is not in the port."""
-    port, _, t_min, t_max = _case()
+    supported ones.  Bucketed admission composes with a mesh, as in the JAX
+    package: on one rank, a bucketed sharded serve equals JAX's, padded
+    buffer and plan key (``@q1``) included."""
+    port, jax, t_min, t_max = _case()
+    out = []
+    with one_rank_group():
+        for p in (port, jax):
+            batch = _ea_batch(p, t_max, (t_max - t_min) // 8, 3)
+            res, state = p.serve_batch(p.g, batch, p.idx, access="index",
+                                       admission="bucketed", mesh=1)
+            assert state.group_caps == (4,) and res[0].shape[0] == 4
+            out.append((res[0], state.plan.cache_key))
+    _assert_rows_match(out[0][0], out[1][0], "earliest_arrival", "bucketed mesh=1")
+    assert out[0][1] == out[1][1] and out[0][1].endswith("@q1")
     batch = _ea_batch(port, t_max, (t_max - t_min) // 8, 1)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        serve_batch(port.g, batch, port.idx, access="index", admission="bucketed",
-                    mesh=1)
     with pytest.raises(ValueError, match="warm_start"):
         serve_batch(port.g, batch, port.idx, admission="bucketed", warm_start=True)
     with pytest.raises(ValueError, match="supported serve_batch"):
@@ -151,8 +160,8 @@ def test_unsupported_combo_error_path_does_not_consume_state():
     _, state = serve_batch(g, mk(0), idx, access="index")
     for kw in (dict(admission="rate-limited"),
                dict(admission="bucketed", warm_start=True),
-               dict(mesh=(2, 2), access="scan")):
-        with pytest.raises((ValueError, NotImplementedError)):
+               dict(mesh=(2, 2), access="scan")):     # no group of 4 ranks here
+        with pytest.raises(ValueError):
             serve_batch(g, mk(1), idx, state=state, **kw)
     assert not state.consumed
     _, s2 = serve_batch(g, mk(1), idx, state=state, access="index")
@@ -665,10 +674,44 @@ def test_tick_invalidates_class_state_when_serve_raises(monkeypatch):
 
 
 def test_server_mesh_is_not_in_the_port():
-    port, *_ = _case()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        GraphBatchServer(port.g, port.idx, mesh=2)
+    """``GraphBatchServer(mesh=)`` (once outside the port, hence the name):
+    on one rank its batch and daemon modes equal the JAX server's with
+    ``mesh=1`` (rows, stats, the class chains' keys); a mesh the process
+    group cannot hold raises ValueError at the first serve, as JAX's does."""
+    port, jax, t_min, t_max = _case()
+    span = t_max - t_min
+    width, stride = max(span // 20, 4), max(span // 160, 1)
+    runs = []
+    with one_rank_group():
+        for p in (port, jax):
+            server = p.Server(p.g, p.idx, access="index", mesh=1)
+            rows = [server.advance(_ea_batch(p, t_max - (3 - k) * stride, width, 2))
+                    for k in range(3)]
+            daemon = p.Server(p.g, p.idx, access="index", mesh=1)
+            for i, alg in enumerate(ALGS):
+                daemon.submit(_spec(p, alg, i, (0, width)))
+            reps = [daemon.tick(t_max - (3 - k) * stride) for k in range(3)]
+            runs.append((rows, vars(server.stats), server.devices, reps,
+                         vars(daemon.stats),
+                         sorted(st.plan.cache_key
+                                for st in daemon._class_states.values())))
+    (rows, stats, dev, reps, dstats, keys), (jrows, jstats, jdev, jreps, jdstats,
+                                             jkeys) = runs
+    assert stats == jstats and dev == jdev == 1 and dstats == jdstats
+    assert keys == jkeys and all(k.endswith("@q1") for k in keys)
+    for k, (a, b) in enumerate(zip(rows, jrows)):
+        _assert_rows_match(a[0], b[0], "earliest_arrival", f"advance {k}")
+    alg_of = {i: a for i, a in enumerate(ALGS)}
+    for rep, jrep in zip(reps, jreps):
+        assert rep.classes_served == jrep.classes_served
+        for tid, got in rep.results.items():
+            _assert_rows_match(got, jrep.results[tid], alg_of[tid], f"tick {rep.tick}")
     assert GraphBatchServer(port.g, port.idx).devices == 1
+    batch = _ea_batch(port, t_max, width, 1)
+    with pytest.raises(ValueError, match="no process group"):
+        GraphBatchServer(port.g, port.idx, mesh=2).advance(batch)
+    with pytest.raises(ValueError, match="device"):
+        jax.Server(jax.g, jax.idx, mesh=2).advance(_ea_batch(jax, t_max, width, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -752,5 +795,19 @@ def test_launcher_matches_jax(mode, capsys):
         assert "history: tier='cold'" in port_out
         # the stats count the time-travel advance after the summary line
         assert stats.advances == 5 + 1
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # --shard-queries needs a process group of its size ...
+    with pytest.raises(ValueError, match="no process group"):
         tlaunch.main(flags + ["--device", "cpu", "--shard-queries", "2"])
+    # ... and on one rank serves sharded, printing the JAX launcher's numbers
+    # (the cold store turns the mesh off in both, so the flags run without it)
+    flags = flags[:flags.index("--history-chunks")] + ["--seed", "3"]
+    with one_rank_group():
+        stats = tlaunch.main(flags + ["--device", "cpu", "--shard-queries", "1"])
+        port_out = capsys.readouterr().out
+        jargs.history_chunks, jargs.shard_queries = None, 1
+        (jlaunch.run_daemon if mode == "--daemon" else jlaunch.run_graph)(jargs)
+        jax_out = capsys.readouterr().out
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            tlaunch.main(flags + ["--device", "cpu", "--shard-queries", "2"])
+    assert _numbers(port_out) == _numbers(jax_out)
+    assert stats.fused_dispatches > 0

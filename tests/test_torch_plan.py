@@ -101,9 +101,19 @@ def test_plan_query_without_index_and_errors():
     (dict(exchange_budget=8), "item 14"),
 ])
 def test_out_of_slice_options_raise(kw, item):
-    _, tg, _, ti = _pair("power_law", 7)
-    with pytest.raises(NotImplementedError, match=item):
-        tplan.plan_query(tg, ti, (0, 10), **kw)
+    """The options ROADMAP Queue 1 ``item`` ported no longer raise: the
+    distributed exchange budget is a plan field on the cache key (``x8``),
+    as in the JAX package, for every access method."""
+    jg, tg, ji, ti = _pair("power_law", 7)
+    for access in ("auto", "scan", "index", "hybrid"):
+        jp = jplan.plan_query(jg, ji, (0, 10), access=access, **kw)
+        tp = tplan.plan_query(tg, ti, (0, 10), access=access, **kw)
+        assert tp.cache_key == jp.cache_key and "/x8/" in tp.cache_key
+        assert tp.exchange_budget == jp.exchange_budget == 8
+        assert tp.edge_axis is None
+    mk = tplan.make_plan("index", budget=64, exchange_budget=16)
+    assert mk.cache_key == jplan.make_plan("index", budget=64,
+                                           exchange_budget=16).cache_key
 
 
 @pytest.mark.parametrize("tier", ["hot", "cold", "split"])
@@ -188,13 +198,19 @@ def test_ladder_rides_the_cache_key_as_in_jax():
 
 
 def test_plan_batch_not_ported():
-    """plan_batch is ported, its bucketed form too (the key equals the JAX
-    one); its sharded form is not yet."""
+    """plan_batch is ported with every form (the name predates its sharded
+    form): the bucketed and the sharded keys equal the JAX ones."""
     jg, tg, ji, ti = _pair("power_law", 7)
     batch = tqueries.QueryBatch.make([tqueries.QuerySpec.make("cc", (0, 10))])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tplan.plan_batch(tg, ti, batch, shards=2)
     import repro.engine.queries as jqueries
+    jbatch = jqueries.QueryBatch.make([jqueries.QuerySpec.make("cc", (0, 10))])
+    # the sharded form: the mesh shape rides the signature, (1, D) is the
+    # 1-D form, and the keys equal the JAX package's
+    for shards, suffix in ((2, "@q2"), ((1, 4), "@q4"), ((2, 2), "@e2q2"),
+                           ((4, 1), "@e4q1")):
+        key = tplan.plan_batch(tg, ti, batch, shards=shards).cache_key
+        assert key == jplan.plan_batch(jg, ji, jbatch, shards=shards).cache_key
+        assert key.endswith(suffix)
     jb = jqueries.QueryBatch.make([jqueries.QuerySpec.make("cc", (0, 10))] * 3)
     tb = tqueries.QueryBatch.make([tqueries.QuerySpec.make("cc", (0, 10))] * 3)
     key = tplan.plan_batch(tg, ti, tb, bucketed=True).cache_key

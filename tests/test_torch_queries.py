@@ -182,7 +182,19 @@ def test_decision_for_identical(kind):
 
 
 def test_plan_batch_options_not_in_the_port():
-    _, tg, _, ti = graph_pair("transit")
-    batch = te.QueryBatch.make([te.QuerySpec.make("cc", (0, 10))])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tplan.plan_batch(tg, ti, batch, shards=2)
+    """``plan_batch(shards=)`` (once outside the port, hence the name): the
+    sharded signature suffix and the whole key equal the JAX package's on a
+    mixed batch, bucketed or not; the sharded and the unsharded key
+    differ only by the suffix."""
+    jg, tg, ji, ti = graph_pair("transit")
+    specs = lambda eng: [eng.QuerySpec.make("cc", (0, 10)),  # noqa: E731
+                         eng.QuerySpec.make("earliest_arrival", (0, 10), sources=[1, 2]),
+                         eng.QuerySpec.make("pagerank", (5, 10), n_iters=4)]
+    tb, jb = te.QueryBatch.make(specs(te)), je.QueryBatch.make(specs(je))
+    for bucketed in (False, True):
+        base = tplan.plan_batch(tg, ti, tb, bucketed=bucketed).cache_key
+        for shards in (1, 2, (1, 3), (2, 2)):
+            key = tplan.plan_batch(tg, ti, tb, shards=shards, bucketed=bucketed).cache_key
+            assert key == jplan.plan_batch(jg, ji, jb, shards=shards,
+                                           bucketed=bucketed).cache_key
+            assert key.startswith(base) and key[len(base):].startswith("@")

@@ -38,7 +38,7 @@ from repro_torch.core.edgemap import union_window, view_for_plan
 from repro_torch.core.temporal_graph import from_edges
 from repro_torch.engine.plan import make_plan, plan_query
 from repro_torch.serve import serve_batch, sliding_windows, sweep, sweep_incremental
-from test_torch_common import as_np, assert_same, jgen, jtger, tgen, ttger
+from test_torch_common import as_np, assert_same, jgen, jtger, one_rank_group, tgen, ttger
 
 MT_ADVANCES = 48
 SOAK_ADVANCES = 100
@@ -403,9 +403,10 @@ def test_serve_batch_mismatched_state_falls_cold_without_consuming():
 
 def test_unknown_algorithm_and_options_not_in_the_port():
     """An unknown algorithm and an unknown admission mode raise ValueError;
-    the mesh raises NotImplementedError naming its ROADMAP item, before the
-    carried state is touched."""
-    _, _, g, idx, _, t_min, t_max = _case()
+    so does a mesh the process group cannot hold (none initialised here;
+    on one rank, a mesh of two), as the JAX package's ``mesh=2`` does on one
+    device, before the carried state is touched."""
+    jg, ji, g, idx, _, t_min, t_max = _case()
     with pytest.raises(ValueError, match="algorithm"):
         serve_batch(g, te.QueryBatch.make(
             [te.QuerySpec.make("nope", (t_min, t_max), sources=1)]), idx)
@@ -413,9 +414,15 @@ def test_unknown_algorithm_and_options_not_in_the_port():
     batch = te.QueryBatch.make(
         [te.QuerySpec.make("earliest_arrival", (b - 50, b), sources=1)])
     _, state = serve_batch(g, batch, idx, access="index")
-    for kw, item in ((dict(mesh=2), "item 14"),):
-        with pytest.raises(NotImplementedError, match=item):
-            serve_batch(g, batch, idx, state=state, access="index", **kw)
+    with pytest.raises(ValueError, match="no process group"):
+        serve_batch(g, batch, idx, state=state, access="index", mesh=2)
+    with one_rank_group():
+        with pytest.raises(ValueError, match="needs 2 ranks but the process group has 1"):
+            serve_batch(g, batch, idx, state=state, access="index", mesh=2)
+    jbatch = je.QueryBatch.make(
+        [je.QuerySpec.make("earliest_arrival", (b - 50, b), sources=1)])
+    with pytest.raises(ValueError, match="device"):
+        jws.serve_batch(jg, jbatch, ji, access="index", mesh=2)
     with pytest.raises(ValueError, match="admission"):
         serve_batch(g, batch, idx, state=state, admission="eager")
     assert not state.consumed
