@@ -86,10 +86,27 @@
    of the engine's own decode steps and every served token are checked
    against ``forward``; prefill and decode times, tokens/s and a profile of
    one decode step are printed.
-10. Prints the kernel table as one JSON line (each kernel's launches on
-   the counted paths of items 4–7 and 9, the ladder phase's, the
-   history/daemon phase's and the distributed phase's also apart, and K1's
-   launches inside laddered solves), then the result line.
+10. MoE at qwen3-moe-30b-a3b's published widths (d_model 2048, 128 experts,
+   top-8, expert d_ff 768, vocab 151936, bfloat16): ``moe_ffn`` against a
+   per-token dense mixture (float32); K4 at its decode shape (G 8); item 9's
+   serving run on 4 layers at capacity factor 16 (nothing dropped, so the
+   served tokens check against ``forward``), launch counts reset just
+   before and read just after (K4 launches = 4 x decode steps); 8 train
+   steps on 2 layers (losses finite and falling).
+11. LM training through ``launch/train.py`` at smollm-135m's published
+   config (30 layers, bfloat16, batch 8 x 512): 40 steps with a checkpoint
+   every 20, then a fresh run resumed from step 20, both under
+   ``torch.use_deterministic_algorithms`` (resumed losses equal to the
+   uninterrupted ones, losses falling); int8, top-k and 2-microbatch runs;
+   one float32 step on the card against the CPU and 2 microbatches against
+   one batch (2 layers); ms per step, tokens/s, peak memory and a profiled
+   step's idle share.
+12. Prints the kernel table as one JSON line (each kernel's launches on
+   the counted paths of items 4–7, 9 and 10, the ladder phase's, the
+   history/daemon phase's, the distributed phase's, the MoE serving
+   phase's and the training phase's also apart, K4 at the MoE decode
+   shape, and K1's launches inside laddered solves), then the result
+   line.
 
 Any mismatch raises, and the script exits non-zero.  It imports nothing
 of JAX or of the JAX package.
@@ -192,6 +209,51 @@ LM_LAYER_TOL = {"bfloat16": 2**-6, "float32": 1e-4}
 LM_KV_TOL = 2**-7
 LM_STATE_H_MAX = 0.25
 LM_F32_REQUESTS = 4
+# For a MoE model the bfloat16 teacher-forced check requires the written
+# K/V and the median block only: a router score near the top-k boundary
+# rounds either way in bfloat16 and the block then mixes another expert
+# (the float32 check still requires every block).
+# LM training through launch/train.py at smollm-135m's published config
+# (30 layers, d_model 576, vocab 49152, bfloat16)
+TRAIN_ARCH = "smollm-135m"
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 40, 20
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+# The reference's init gives smollm's logits a spread of ~24 at these widths
+# (first loss ~101, gradient norm ~7e10): at the trainer's default rate
+# 3e-3 the bfloat16 weights barely move in 40 steps and the loss stays flat
+# (an H100 80GB HBM3 at 700 W), at 3e-2 it falls (~101 -> ~77 in 24 steps
+# on the CPU)
+TRAIN_LR = 3e-2
+TRAIN_SHORT_STEPS = 3
+TRAIN_TIMED_STEPS = 10
+# One train step on the card in float32 (one batch, and 2 microbatches)
+# against the CPU's float64 step, and the CPU's float32 step beside it, TF32
+# off: smollm's widths at TRAIN_CMP_LAYERS layers, AdamW at a constant rate.
+# At these widths float32 itself puts the gradients ~2e-3 (relative L2) off
+# float64 on the CPU, in every leaf (the reference's init makes the
+# attention softmax nearly one-hot; an H100 80GB HBM3 read 1.3e-3 between
+# the card and the CPU), so the card's gradients are held to within
+# 2x the CPU's float32 error; the loss within rtol 1e-5 and the gradient
+# norm within 1e-4 of float64; every parameter within 2.5 lr of the CPU's
+# float32 step (a first AdamW step moves an entry by about lr x sign(g): an
+# entry whose gradient rounds to the other sign lands up to 2 lr away).
+TRAIN_CMP_LAYERS = 2
+TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 4, 128
+TRAIN_CMP_LR = 3e-3
+TRAIN_TOL = dict(loss_rel=1e-5, grad_norm_rel=1e-4, grads_rel_l2_over_cpu=2.0,
+                 params_gap_lr=2.5)
+# MoE at qwen3-moe-30b-a3b's published widths (d_model 2048, 128 experts,
+# top-8, expert d_ff 768, vocab 151936), depth cut to 4 layers for serving
+# and 2 for training.  Serving runs at capacity factor E / K = 16, so
+# C >= T and no pair is dropped: at a decode step T is the slot count, in
+# forward the sequence length, and a tight capacity would drop different
+# pairs in the two.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 4, 2
+MOE_AMPLE = 16.0
+MOE_FFN_TOKENS = 64
+MOE_FFN_TOL = dict(rtol=2e-4, atol=2e-4)  # test_models.py's dense-mixture check
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 256, 8
 
 
 def ptxas_report(text: str):
@@ -2698,7 +2760,7 @@ def layer_errors(torch, np, model, seq, p):
     out = []
     for blk in model.layers:
         h_in = h[:, p]
-        h, k, v = tf.layer_forward(cfg, blk, h, rot)
+        h, k, v, _ = tf.layer_forward(cfg, blk, h, rot)
         kc[0, :p], vc[0, :p] = k[0, :p], v[0, :p]
         with mock.patch.object(tf, "decode_attention", decode_attention_plain):
             h_plain = tf.layer_decode(cfg, blk, h_in, kc, vc, slot, rot_p)
@@ -2739,7 +2801,7 @@ def check_engine_state(torch, np, model, reqs, h0_rows, kv0):
         toks = torch.as_tensor(_padded(np, seq, cfg.q_chunk), device=dev)
         S = toks.shape[1]
         rot = rope_tables(torch.arange(S, device=dev)[None], cfg.head_dim, cfg.rope_theta)
-        h, k, v = layer_forward(cfg, blk, model.embed[toks].to(cfg.dtype), rot)
+        h, k, v, _ = layer_forward(cfg, blk, model.embed[toks].to(cfg.dtype), rot)
         kc, vc = kv0[r.rid]
         kv_err.append(torch.maximum(_rel_rows(kc, k[0, :len(seq)]),
                                     _rel_rows(vc, v[0, :len(seq)])).max().item())
@@ -2775,6 +2837,7 @@ def check_served_tokens(torch, np, model, reqs):
     import dataclasses
 
     from repro_torch.models.transformer import LM, forward
+    from repro_torch.tree import tree_map
 
     cfg, dev = model.cfg, model.device
     t0 = time.perf_counter()
@@ -2782,7 +2845,7 @@ def check_served_tokens(torch, np, model, reqs):
     # 1. the first token, from prefill, against forward over the prompt
     first_gap, exact = 0.0, 0
     for r in served:
-        row = forward(model, torch.as_tensor(r.prompt, device=dev)[None])[0, -1]
+        row = forward(model, torch.as_tensor(r.prompt, device=dev)[None])[0][0, -1]
         first_gap = max(first_gap, float(row.max() - row[r.generated[0]]))
         exact += int(int(row.argmax()) == r.generated[0])
     first_share = exact / len(served)
@@ -2796,8 +2859,7 @@ def check_served_tokens(torch, np, model, reqs):
     # 2. every layer of a decode step, teacher-forced, bfloat16 and float32
     decoded = [r for r in served if len(r.generated) >= 2]
     wide_cfg = dataclasses.replace(cfg, dtype=torch.float32)
-    wide = LM(wide_cfg, {n: p.float() for n, p in model.named_parameters(recurse=False)},
-              [{n: p.float() for n, p in blk.named_parameters()} for blk in model.layers])
+    wide = LM(wide_cfg, tree_map(lambda p: p.float(), model.params))
     figures = {}
     for name, m, rs in (("bfloat16", model, decoded),
                         ("float32", wide, decoded[:LM_F32_REQUESTS])):
@@ -2814,7 +2876,10 @@ def check_served_tokens(torch, np, model, reqs):
             f"{h_med:.3g}, max {h_max:.3g}; with K4's plain version: median "
             f"{np.median(errs[:, 3]):.3g}, max {plain_max:.3g}; of the written K/V: max "
             f"{kv_max:.3g} (tol {LM_LAYER_TOL[name]:.3g})")
-        worst = float(errs.max()) if name == "float32" else max(kv_max, h_med, plain_max)
+        # bfloat16 MoE: a near-tied router score rounds either way, and the
+        # block then mixes another expert (reported, not required)
+        worst = (float(errs.max()) if name == "float32" else max(kv_max, h_med)
+                 if cfg.moe else max(kv_max, h_med, plain_max))
         if worst > LM_LAYER_TOL[name]:
             raise AssertionError(f"[lm] decode blocks off forward's in {name}: "
                                  f"{worst:.3g} > {LM_LAYER_TOL[name]:.3g}")
@@ -2824,7 +2889,7 @@ def check_served_tokens(torch, np, model, reqs):
     gaps, exact = [], 0
     for r in served:
         seq = np.concatenate([r.prompt, np.asarray(r.generated[:-1], np.int32)])
-        rows = forward(model, torch.as_tensor(_padded(np, seq, cfg.q_chunk), device=dev))[
+        rows = forward(model, torch.as_tensor(_padded(np, seq, cfg.q_chunk), device=dev))[0][
             0, len(r.prompt) - 1: len(seq)]
         tok = torch.as_tensor(r.generated, device=dev)
         gaps += (rows.max(dim=-1).values - rows.gather(1, tok[:, None])[:, 0]).tolist()
@@ -2882,7 +2947,7 @@ def lm_path(torch, np, model, seed):
 
     def record_layer0(cfg_, blk, *args):
         out = layer_decode(cfg_, blk, *args)
-        if blk is model.layers[0]:
+        if blk.index == 0:
             layer0.append(out)
         return out
 
@@ -3001,6 +3066,345 @@ def lm_path(torch, np, model, seed):
     return [rec], counts
 
 
+def params_gap(got, want, lr):
+    """Two parameter trees: (the largest entry gap over ``lr``, the share of
+    entries more than 1e-5 of their leaf's largest value apart)."""
+    from repro_torch.tree import tree_items
+
+    worst, off, total = 0.0, 0, 0
+    for (_, a), (_, b) in zip(tree_items(got), tree_items(want)):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()) / lr)
+        off += int((d > 1e-5 * b.abs().max()).sum())
+        total += d.numel()
+    return worst, off / total
+
+
+def grads_gap(got, want):
+    """Relative L2 error of a tree against another: over the whole tree, and
+    the largest leaf's (name, error)."""
+    from repro_torch.tree import tree_items
+
+    num = den = 0.0
+    worst = ("", 0.0)
+    for (key, a), (_, b) in zip(tree_items(got), tree_items(want)):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        d2, b2 = float((a - b).square().sum()), float(b.square().sum())
+        num, den = num + d2, den + b2
+        worst = max(worst, (key, (d2 / max(b2, 1e-300)) ** 0.5), key=lambda w: w[1])
+    return (num / den) ** 0.5, worst
+
+
+def train_compare(torch, np, seed, device="cuda"):
+    """One train step at smollm-135m's widths (TRAIN_CMP_LAYERS layers) from
+    the same weights and batch: float32 on the card (one batch, and 2
+    microbatches) and on the CPU, and float64 on the CPU as the reference,
+    TF32 off; held to TRAIN_TOL.  Returns the figures."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).cfg, n_layers=TRAIN_CMP_LAYERS,
+                              dtype=torch.float32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 5)
+    base = tf.init_lm(cfg, gen, device)
+    host = next(MarkovCorpus(cfg.vocab, seed=seed).batches(TRAIN_CMP_BATCH, TRAIN_CMP_SEQ,
+                                                           seed=seed + 1))
+
+    def one_step(device, microbatches, dtype=torch.float32):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = tf.LM(c, tree_map(lambda p: p.detach().to(device, dtype).clone(), base.params))
+        opt = make_optimizer("adamw", TRAIN_CMP_LR)
+        tcfg = TrainConfig(microbatches=microbatches)
+        step = make_train_step(lambda p, b: tf.loss_fn(model, b), opt, tcfg)
+        state = init_train_state(model.params, opt, tcfg)
+        batch = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+        t0 = time.perf_counter()
+        params, state, m = step(model.params, state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        return dict(loss=loss, grad_norm=gnorm, s=time.perf_counter() - t0, params=params,
+                    m=state["opt"]["m"])
+
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        card, micro = one_step(device, 1), one_step(device, 2)
+        cpu, ref = one_step("cpu", 1), one_step("cpu", 1, torch.float64)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    cpu_err, cpu_leaf = grads_gap(cpu["m"], ref["m"])
+    rec, bad = dict(card_step_s=card["s"], cpu_step_s=cpu["s"], cpu_grads_rel_l2=cpu_err,
+                    cpu_grads_worst_leaf=cpu_leaf), []
+    for label, got in (("card", card), ("card_microbatches_2", micro)):
+        err, leaf = grads_gap(got["m"], ref["m"])
+        gap, share = params_gap(got["params"], cpu["params"], TRAIN_CMP_LR)
+        fig = dict(loss_rel=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                   grad_norm_rel=abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+                   grads_rel_l2_over_cpu=err / cpu_err, grads_rel_l2=err,
+                   grads_worst_leaf=leaf, params_gap_lr=gap, params_off_share=share)
+        log(f"[train] one step, {cfg.n_layers} layers at {TRAIN_ARCH}'s widths, batch "
+            f"{TRAIN_CMP_BATCH} x {TRAIN_CMP_SEQ}: {label} float32 against the CPU's float64 "
+            f"(loss {got['loss']:.7f} / {ref['loss']:.7f}, grad norm {got['grad_norm']:.6f} / "
+            f"{ref['grad_norm']:.6f}; the CPU's float32 gradients {cpu_err:.3g} off, worst "
+            f"leaf {cpu_leaf}), parameters against the CPU's float32 step: {fig} "
+            f"(tolerances {TRAIN_TOL}); {got['s']:.3f} s")
+        bad += [(label, k) for k, tol in TRAIN_TOL.items() if not fig[k] <= tol]
+        rec[label] = fig
+    if bad:
+        raise AssertionError(f"[train] steps off the reference: {bad} {rec}")
+    return rec
+
+
+def train_path(torch, np, seed, device="cuda"):
+    """LM training through ``launch/train.py`` at TRAIN_ARCH's published
+    config: TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ with a checkpoint
+    every TRAIN_CKPT_EVERY, then a fresh run resumed from step
+    TRAIN_CKPT_EVERY, both under ``torch.use_deterministic_algorithms`` (the
+    resumed losses must equal the uninterrupted ones); losses finite and
+    falling; ``--compression int8`` / ``topk`` and ``--microbatches 2`` runs
+    of TRAIN_SHORT_STEPS; ``train_compare``; then TRAIN_TIMED_STEPS steps
+    timed (ms per step, tokens/s, peak memory) and one profiled (idle share
+    against the median step)."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import make_optimizer, warmup_cosine
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+
+    out = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--scale", "full", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--log-every", "10",
+            "--seed", str(seed), "--device", device]
+    ckpt = f"step_{TRAIN_CKPT_EVERY:010d}"
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        full = train.main(argv + ["--steps", str(TRAIN_STEPS), "--ckpt", str(out / "a"),
+                                  "--ckpt-every", str(TRAIN_CKPT_EVERY)])
+        full_s = time.perf_counter() - t0
+        (out / "b").mkdir(parents=True)
+        shutil.copytree(out / "a" / ckpt, out / "b" / ckpt)
+        resumed = train.main(argv + ["--steps", str(TRAIN_STEPS), "--ckpt", str(out / "b"),
+                                     "--ckpt-every", str(TRAIN_CKPT_EVERY), "--resume"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(out, ignore_errors=True)
+    first, last = float(np.mean(full[:5])), float(np.mean(full[-5:]))
+    log(f"[train] {TRAIN_ARCH}, {TRAIN_STEPS} steps in {full_s:.2f} s (deterministic "
+        f"algorithms, checkpoints included): loss {full[0]:.4f} -> {full[-1]:.4f} (mean of "
+        f"the first 5 {first:.4f}, of the last 5 {last:.4f}); resumed from step "
+        f"{TRAIN_CKPT_EVERY}: {len(resumed)} losses, equal to the uninterrupted run's: "
+        f"{resumed == full[TRAIN_CKPT_EVERY:]}")
+    if not np.isfinite(full).all() or not last < first:
+        raise AssertionError(f"[train] losses not finite and falling: {full}")
+    if resumed != full[TRAIN_CKPT_EVERY:]:
+        raise AssertionError(f"[train] resumed losses {resumed} != {full[TRAIN_CKPT_EVERY:]}")
+    short = {}
+    for flags in (["--compression", "int8"], ["--compression", "topk"],
+                  ["--microbatches", "2"]):
+        losses = train.main(argv + ["--steps", str(TRAIN_SHORT_STEPS)] + flags)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"[train] {flags}: losses {losses}")
+        short[" ".join(flags)] = losses
+    log(f"[train] short runs of {TRAIN_SHORT_STEPS} steps: {short}")
+    figures = train_compare(torch, np, seed, device)
+
+    # ms per step, tokens/s and a profile, outside deterministic mode
+    cfg = get_arch(TRAIN_ARCH).cfg
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = tf.init_lm(cfg, gen, device)
+    opt = make_optimizer("adamw", warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1, TRAIN_STEPS))
+    step = make_train_step(lambda p, b: tf.loss_fn(model, b), opt, TrainConfig())
+    state = init_train_state(model.params, opt, TrainConfig())
+    batches = MarkovCorpus(cfg.vocab, seed=seed).batches(TRAIN_BATCH, TRAIN_SEQ, seed=seed + 1)
+    box = {"state": state}
+
+    def run():
+        batch = {k: torch.as_tensor(v, device=device) for k, v in next(batches).items()}
+        _, box["state"], m = step(model.params, box["state"], batch)
+        return float(m["loss"])
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        run()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_query(torch, f"[train] one {TRAIN_ARCH} step", run, top=10, warm=False)
+    med = float(np.median(ms))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6.0 * cfg.n_active_params * tokens
+    rec = dict(graph="lm", algorithm="train", arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               steps=TRAIN_STEPS, losses_first_last=[full[0], full[-1]],
+               resumed_equal=True, step_ms=[round(t, 3) for t in ms],
+               step_ms_median=med, step_ms_mean=float(np.mean(ms)),
+               tokens_per_s=tokens / (med / 1e3), model_flops_per_step=flops,
+               model_tflops_per_s=flops / (med / 1e3) / 1e12, peak_memory_bytes=peak,
+               profile_wall_us=prof["wall_us"], profile_busy_us=prof["busy_us"],
+               idle_share=1 - prof["busy_us"] / (med * 1e3),
+               profile_launches=sum(prof["count_by_kernel"].values()), **figures)
+    log(f"[train] {cfg.name} step at batch {TRAIN_BATCH} x {TRAIN_SEQ}: median "
+        f"{med:.3f} ms (mean {rec['step_ms_mean']:.3f}), {rec['tokens_per_s']:.1f} tokens/s, "
+        f"{rec['model_tflops_per_s']:.2f} model TFLOP/s (6 N D), peak memory "
+        f"{peak / 2**30:.2f} GiB; the profiled step {prof['busy_us']:.1f} us busy: idle share "
+        f"{rec['idle_share']:.3f} against the median step")
+    return [rec]
+
+
+def k4_at(torch, k4, cfg, gen, lengths_hi):
+    """K4 in bfloat16 at a model's decode shape (LM_SLOTS rows, LM_MAX_SEQ
+    positions, ragged lengths up to ``lengths_hi``) against its plain version
+    on float32 copies, timed beside it, beside scaled_dot_product_attention
+    and beside its bound."""
+    import torch.nn.functional as F
+
+    B, S, KH, Dh, H = LM_SLOTS, LM_MAX_SEQ, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    dev = gen.device
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((B, H, Dh), (B, S, KH, Dh), (B, S, KH, Dh)))
+    lens = torch.randint(1, lengths_hi + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    want = k4.decode_attention_plain(q.float(), k.float(), v.float(), lens).to(q.dtype)
+    err = close_err(torch, k4.decode_attention(q, k, v, lens), want, **K4_TOL["bfloat16"])
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None, :], ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+
+    close_err(torch, sdpa()[:, :, 0], want, **LIBRARY_TOL["bfloat16"])
+    n_valid = int(lens.sum())
+    b_ms, b_by = bound_ms(2 * n_valid * KH * Dh * 2 + 2 * B * H * Dh * 2 + 4 * B,
+                          4 * n_valid * H * Dh)
+    return dict(shape=dict(B=B, S=S, KH=KH, G=H // KH, Dh=Dh, valid_positions=n_valid),
+                max_abs_err=err, ms=cuda_ms(torch, lambda: k4.decode_attention(q, k, v, lens)),
+                plain_ms=cuda_ms(torch, lambda: k4.decode_attention_plain(q, k, v, lens)),
+                library_ms=cuda_ms(torch, sdpa), bound_ms=b_ms, bound_by=b_by)
+
+
+def moe_path(torch, np, seed, k4, device="cuda"):
+    """MoE at MOE_ARCH's published widths: ``moe_ffn`` against a per-token
+    dense mixture (float32, TF32 off, MOE_FFN_TOKENS tokens, ample capacity)
+    and in bfloat16 against the all-experts mix; K4 at the MoE decode shape;
+    ``lm_path`` on MOE_SERVE_LAYERS layers at the ample capacity factor
+    MOE_AMPLE (nothing dropped, so the served tokens compare with
+    ``forward``); MOE_TRAIN_STEPS train steps on MOE_TRAIN_LAYERS layers at
+    the published capacity factor.  Returns (records, K4 record, the serving
+    run's launch counts)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import make_optimizer, warmup_cosine
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    full = get_arch(MOE_ARCH).cfg
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 3)
+    mcfg = dataclasses.replace(full.moe, capacity_factor=MOE_AMPLE)
+    K = mcfg.top_k
+    params, _ = moe_mod.init_moe(gen, full.d_model, mcfg)
+    x = torch.randn((MOE_FFN_TOKENS, full.d_model), generator=gen, device=device)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got, aux = moe_mod.moe_ffn(params, x, mcfg)
+            probs = torch.softmax(x @ params["router"], -1)
+            top_w, top_ids = torch.topk(probs, K)
+            top_w = top_w / top_w.sum(-1, keepdim=True)
+            ids = top_ids.cpu().tolist()
+            ref = torch.zeros_like(x)
+            for t in range(MOE_FFN_TOKENS):
+                for j, e in enumerate(ids[t]):
+                    h = F.silu(x[t] @ params["w_gate"][e]) * (x[t] @ params["w_up"][e])
+                    ref[t] += top_w[t, j] * (h @ params["w_down"][e])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    ffn_err = close_err(torch, got, ref, **MOE_FFN_TOL)
+    with torch.no_grad():
+        p16 = tree_map(lambda p: p.to(torch.bfloat16), params)
+        sort16, _ = moe_mod.moe_ffn(p16, x.to(torch.bfloat16), mcfg)
+        mix16, _ = moe_mod.moe_ffn(p16, x.to(torch.bfloat16),
+                                   dataclasses.replace(mcfg, dense_mix=True))
+    bf16_rel = float((sort16.double() - mix16.double()).norm() / mix16.double().norm())
+    log(f"[moe] moe_ffn at {MOE_ARCH}'s widths (d_model {full.d_model}, {mcfg.n_experts} "
+        f"experts, top-{K}, expert d_ff {mcfg.d_ff}), {MOE_FFN_TOKENS} tokens: float32 "
+        f"against the per-token dense mixture within {MOE_FFN_TOL} (max abs err {ffn_err:.3g}, "
+        f"aux {float(aux):.4f}); bfloat16 sort dispatch against the all-experts mix: relative "
+        f"L2 {bf16_rel:.3g} (reported)")
+    del params, x, got, ref, p16, sort16, mix16
+
+    k4_rec = k4_at(torch, k4, full, gen, LM_PROMPT_LEN[1] + LM_MAX_NEW)
+    log(f"[moe] K4 at the MoE decode shape: {k4_rec}")
+
+    cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS, moe=mcfg)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = tf.init_lm(cfg, gen, device)
+    torch.cuda.synchronize()
+    log(f"[moe] serving {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, capacity factor "
+        f"{MOE_AMPLE} (C >= T: nothing dropped), {cfg.dtype}; {cfg.n_params} parameters "
+        f"({cfg.n_active_params} active a token); init in {time.perf_counter() - t0:.2f} s")
+    with torch.no_grad():
+        records, counts = lm_path(torch, np, model, seed)
+    del model
+
+    tcfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    model = tf.init_lm(tcfg, gen, device)
+    opt = make_optimizer("adamw", warmup_cosine(3e-3, MOE_TRAIN_STEPS // 10 + 1,
+                                                MOE_TRAIN_STEPS))
+    step = make_train_step(lambda p, b: tf.loss_fn(model, b), opt, TrainConfig())
+    state = init_train_state(model.params, opt, TrainConfig())
+    batches = MarkovCorpus(tcfg.vocab, seed=seed).batches(MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                                                          seed=seed + 1)
+    losses, ms, auxes = [], [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in next(batches).items()}
+        t0 = time.perf_counter()
+        _, state, m = step(model.params, state, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        auxes.append(float(m["aux"]))
+    del model, state
+    log(f"[moe] training {tcfg.name}, {tcfg.n_layers} layers, capacity factor "
+        f"{tcfg.moe.capacity_factor}, batch {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}: losses "
+        f"{[round(l, 4) for l in losses]}, aux {[round(a, 4) for a in auxes]}, ms per step "
+        f"{[round(t, 1) for t in ms]}")
+    if not np.isfinite(losses).all() or not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"[moe] training losses not finite and falling: {losses}")
+    records[0].update(phase="moe_serving", moe_ffn_max_abs_err=ffn_err,
+                      moe_ffn_bf16_rel_l2=bf16_rel)
+    records.append(dict(graph="lm", algorithm="train", arch=tcfg.name,
+                        layers=tcfg.n_layers, batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
+                        losses=losses, step_ms=ms,
+                        step_ms_median=float(np.median(ms[1:])),
+                        tokens_per_s=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (
+                            float(np.median(ms[1:])) / 1e3)))
+    return records, k4_rec, counts
+
+
 def profile_query(torch, label, fn, top: int = 8, warm: bool = True) -> dict:
     """One query under torch.profiler (after one unprofiled call when
     ``warm``): device busy time against the host wall clock, and the
@@ -3036,6 +3440,9 @@ def profile_query(torch, label, fn, top: int = 8, warm: bool = True) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    # cuBLAS is deterministic only with a fixed workspace (the training
+    # phase's resume check runs under torch.use_deterministic_algorithms)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3166,10 +3573,21 @@ def main(argv=None) -> int:
         f"heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab}, {cfg.dtype}; {cfg.n_params} parameters; init from seed {args.seed} "
         f"in {time.perf_counter() - t0:.2f} s")
-    lm_records, lm_counts = lm_path(torch, np, model, args.seed)
+    with torch.no_grad():
+        lm_records, lm_counts = lm_path(torch, np, model, args.seed)
     del model
     records += lm_records
     counts["decode_attention"] = lm_counts["decode_attention"]
+    # -- MoE: moe_ffn, K4 at its decode shape, serving (counted), training ---
+    moe_records, moe_k4, moe_counts = moe_path(torch, np, args.seed, k4)
+    records += moe_records
+    rows[3]["moe_shape"] = moe_k4
+    log(f"MoE serving phase launches: {moe_counts}")
+    # -- LM training (no port kernel on its path; counted all the same) ------
+    reset_launch_counts()
+    records += train_path(torch, np, args.seed)
+    train_counts = launch_counts()
+    log(f"training phase launches: {train_counts}")
     # the kernels' instances on the main paths: registers, spills
     for row in rows[:2]:  # K1: its one-window and its windowed instance
         row["ptxas"] = {k: v for k, v in ptxas["temporal_edgemap"].items()
@@ -3177,14 +3595,16 @@ def main(argv=None) -> int:
     rows[2]["ptxas"] = ptxas["segment_spmm"].get("segment_spmm_tiles_kernel")
     rows[3]["ptxas"] = {f"<{t}, G={G}>": ptxas["decode_attention"].get(
         f"decode_attention_kernel<{t}, {v}, {G}>") for t, v in (("bf16", 8), ("f32", 4))
-        for G in (cfg.n_heads // cfg.n_kv_heads,)}
+        for G in (cfg.n_heads // cfg.n_kv_heads, moe_k4["shape"]["G"])}
     for row in rows:
         row["ladder_launches"] = ladder_counts[row["name"]]
         row["history_daemon_launches"] = history_counts[row["name"]]
         row["distributed_launches"] = dist_counts[row["name"]]
+        row["moe_serving_launches"] = moe_counts[row["name"]]
+        row["training_launches"] = train_counts[row["name"]]
         row["launches"] = (counts[row["name"]] + row["ladder_launches"]
                            + row["history_daemon_launches"]
-                           + row["distributed_launches"])
+                           + row["distributed_launches"] + row["moe_serving_launches"])
         if row["name"] == "segment_min_tiles":
             row["launches_in_laddered_solves"] = laddered_k1
         if row["launches"] <= 0:

@@ -1,26 +1,21 @@
-"""A small registry of language-model specs (the counterpart of
-``repro/configs/base.py``'s ``register`` / ``get_arch``).
-
-The reference's ``ArchSpec`` families also carry dry-run cells and a
-training set-up; the port's serving slice needs only the shapes, so a spec
-here is the published config, its reduced CPU config and its source.
-"""
+"""Config substrate: shape cells and the architecture registry (the port of
+``repro/configs/base.py``; the families are in ``families.py``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
-from repro_torch.models.transformer import LMConfig
-
-_REGISTRY: Dict[str, Callable[[], "LMSpec"]] = {}
+_REGISTRY: Dict[str, Callable[[], Any]] = {}
 
 
 @dataclasses.dataclass(frozen=True)
-class LMSpec:
-    arch_id: str
-    cfg: LMConfig          # the published widths
-    smoke_cfg: LMConfig    # a few narrow layers in float32, for the CPU
-    source: str
+class Cell:
+    """One (architecture x input-shape) cell."""
+
+    name: str
+    kind: str                  # train | prefill | decode | serve | retrieval | analytics
+    meta: Dict[str, Any]
+    skip: Optional[str] = None  # reason when the cell is defined-but-skipped
 
 
 def register(arch_id: str):
@@ -31,7 +26,7 @@ def register(arch_id: str):
     return deco
 
 
-def get_arch(arch_id: str) -> LMSpec:
+def get_arch(arch_id: str):
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()

@@ -2,7 +2,8 @@
 (GQA kv=8) d_ff=8192 vocab=200064; RoPE + SwiGLU + GQA."""
 import torch
 
-from repro_torch.configs.base import LMSpec, register
+from repro_torch.configs.base import register
+from repro_torch.configs.families import LMFamily
 from repro_torch.models.transformer import LMConfig
 
 CFG = LMConfig(
@@ -20,4 +21,7 @@ SMOKE = LMConfig(
 
 @register("phi4-mini-3.8b")
 def _build():
-    return LMSpec("phi4-mini-3.8b", CFG, SMOKE, source="arXiv:2412.08905 [hf]")
+    return LMFamily(
+        "phi4-mini-3.8b", CFG, SMOKE,
+        source="arXiv:2412.08905 [hf]", optimizer="adamw",
+    )

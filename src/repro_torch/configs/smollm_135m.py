@@ -2,7 +2,8 @@
 d_model=576 9H (GQA kv=3) d_ff=1536 vocab=49152, tied embeddings."""
 import torch
 
-from repro_torch.configs.base import LMSpec, register
+from repro_torch.configs.base import register
+from repro_torch.configs.families import LMFamily
 from repro_torch.models.transformer import LMConfig
 
 CFG = LMConfig(
@@ -21,5 +22,7 @@ SMOKE = LMConfig(
 
 @register("smollm-135m")
 def _build():
-    return LMSpec("smollm-135m", CFG, SMOKE,
-                  source="hf:HuggingFaceTB/SmolLM-135M [hf]")
+    return LMFamily(
+        "smollm-135m", CFG, SMOKE,
+        source="hf:HuggingFaceTB/SmolLM-135M [hf]", optimizer="adamw",
+    )

@@ -7,15 +7,28 @@ identities without a mesh and are dropped.  ``flash_attention`` is plain
 ``decode_attention`` goes through the flash-decode kernel K4
 (``kernels/decode_attention.py``) on the card and its plain version on the
 CPU.
+``dense_init`` draws from a ``torch.Generator`` where the reference takes a
+PRNG key; the two give different numbers from one seed.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as _k4
+
+
+def dense_init(generator: torch.Generator, shape, axes, scale: Optional[float] = None,
+               dtype=torch.float32):
+    """(normal(shape) * scale, axes) on the generator's device; the scale is
+    1/sqrt(shape[0]) by default (the reference's fan-in rule here)."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    t = torch.randn(tuple(shape), generator=generator, device=generator.device, dtype=dtype)
+    return t * scale, tuple(axes)
 
 
 def rms_norm(x, gamma, eps: float = 1e-6):
@@ -119,5 +132,18 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
-__all__ = ["rms_norm", "rope", "rope_tables", "apply_rope", "flash_attention",
-           "decode_attention", "swiglu"]
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in float32 (logsumexp); with ``mask``, the
+    masked mean over max(sum(mask), 1).  logits [..., V], labels [...]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+__all__ = ["dense_init", "rms_norm", "rope", "rope_tables", "apply_rope", "flash_attention",
+           "decode_attention", "swiglu", "softmax_cross_entropy"]

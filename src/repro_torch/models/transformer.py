@@ -1,24 +1,33 @@
-"""Decoder-only transformer LM, dense (the port of
-``repro/models/transformer.py`` for serving).
+"""Decoder-only transformer LM, dense or MoE (the port of
+``repro/models/transformer.py``).
 
-``LM`` is an ``nn.Module`` whose blocks hold the reference's per-layer
-weights under the reference's names (``wq wk wv wo ln1 ln2 w_gate w_up
-w_down``, plus ``q_norm`` / ``k_norm``; ``embed``, ``final_ln`` and, unless
-tied, ``lm_head`` on the model), in the reference's layouts: ``wq`` is
-[d, H, Dh], ``wo`` [H, Dh, d].  ``forward``, ``prefill``, ``init_cache`` and
-``decode_step`` are plain functions that take the module, as the
-reference's take the params.  ``init_lm`` draws random weights from a
-``torch.Generator`` on the device it is given (the first CUDA card
-unless named), which must be the generator's; ``params_from_numpy``
-carries the reference's params (stacked ``[L, ...]``) over.
+``LM`` is an ``nn.Module`` that holds the reference's parameter tree as it
+is: ``model.params`` is a nested dict with ``embed``, ``final_ln``, unless
+tied ``lm_head``, and ``layers``, whose leaves are STACKED ``[L, ...]``
+(``wq wk wv wo ln1 ln2``, ``q_norm`` / ``k_norm``, and ``w_gate w_up
+w_down`` or ``moe``: ``router w_gate w_up w_down`` and ``shared``), in the
+reference's layouts (``wq`` is [L, d, H, Dh]).  Each leaf is an
+``nn.Parameter`` that takes gradients.  ``model.layers[i]`` reads layer i's
+weights as views (``blk.wq`` is ``params["layers"]["wq"][i]``; a pass over
+``model.layers`` unbinds each leaf once).  So the
+optimizer, gradient compression and checkpoints see the reference's leaves,
+and any statistic they take over a whole leaf (Adafactor's update clip and
+its factoring test, int8's absmax, top-k's threshold) spans every layer as
+in the reference.
+
+``forward``, ``loss_fn``, ``prefill``, ``init_cache`` and ``decode_step``
+are plain functions that take the module, as the reference's take the
+params.  ``init_lm`` draws random weights from a ``torch.Generator`` on the
+device it is given (the first CUDA card unless named), which must be the
+generator's; ``params_from_numpy`` carries the reference's params over and
+``params_to_numpy`` gives them back.
 
 Differences from the reference, each deliberate:
 - Layers run as a Python loop over the blocks.  ``remat``, ``unroll`` and
   ``gather_weights`` select JAX mechanisms (rematerialisation, scan versus
-  unrolled tracing, ZeRO-3 gathers) and are not fields here; MoE layers
-  (``moe``) are not ported yet, so ``forward`` returns the logits alone,
-  without the MoE auxiliary loss.
-- The weights are made without gradients: this is the serving path.
+  unrolled tracing, ZeRO-3 gathers) and are not fields here.
+- ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``:
+  serving builds no autograd graph.
 - ``decode_step`` writes the new K/V into the cache tensors in place and
   returns the same dict; the reference returns fresh arrays.  A cache
   passed to ``decode_step`` must not be reused for another step from the
@@ -28,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -41,8 +50,11 @@ from repro_torch.models.layers import (
     flash_attention,
     rms_norm,
     rope_tables,
+    softmax_cross_entropy,
     swiglu,
 )
+from repro_torch.models.moe import MoEConfig, moe_ffn
+from repro_torch.tree import tree_items, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +67,7 @@ class LMConfig:
     d_ff: int
     vocab: int
     d_head: Optional[int] = None          # default d_model // n_heads
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 1e6
     use_qk_norm: bool = False
     dtype: torch.dtype = torch.bfloat16
@@ -66,49 +79,98 @@ class LMConfig:
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
 
+    def _attn_params(self) -> int:
+        d, dh = self.d_model, self.head_dim
+        return d * (self.n_heads + 2 * self.n_kv_heads) * dh + self.n_heads * dh * d
+
+    def _embed_params(self) -> int:
+        return self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+
     @property
     def n_params(self) -> int:
         """Total parameter count (for 6ND model-flops accounting)."""
-        d, dh = self.d_model, self.head_dim
-        attn = d * (self.n_heads + 2 * self.n_kv_heads) * dh + self.n_heads * dh * d
-        ff = 3 * d * self.d_ff
-        norms = 2 * d
-        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
-        return self.n_layers * (attn + ff + norms) + emb + d
+        d = self.d_model
+        if self.moe:
+            ff = self.moe.n_experts * 3 * d * self.moe.d_ff + d * self.moe.n_experts
+            ff += self.moe.n_shared * 3 * d * self.moe.d_ff
+        else:
+            ff = 3 * d * self.d_ff
+        return self.n_layers * (self._attn_params() + ff + 2 * d) + self._embed_params() + d
+
+    @property
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if not self.moe:
+            return self.n_params
+        d = self.d_model
+        ff = (self.moe.top_k + self.moe.n_shared) * 3 * d * self.moe.d_ff
+        ff += d * self.moe.n_experts  # router
+        return self.n_layers * (self._attn_params() + ff + 2 * d) + self._embed_params() + d
 
 
-def _block_layout(cfg: LMConfig) -> Dict[str, tuple]:
-    """(per-layer shape, init kind) of each weight of one block."""
-    d, dh, H, KH = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    layout = {
-        "wq": ((d, H, dh), "dense"),
-        "wk": ((d, KH, dh), "dense"),
-        "wv": ((d, KH, dh), "dense"),
-        "wo": ((H, dh, d), "dense"),
-        "ln1": ((d,), "ones"),
-        "ln2": ((d,), "ones"),
+# ---------------------------------------------------------------------------
+# layout and init
+# ---------------------------------------------------------------------------
+
+def _layout(cfg: LMConfig) -> Dict[str, Any]:
+    """(shape, logical axes, init kind) of every parameter, in the
+    reference's tree (``_layout``)."""
+    d, dh, H, KH, L = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    layer: Dict[str, Any] = {
+        "wq": ((L, d, H, dh), ("layers", "fsdp", "heads", None), "dense"),
+        "wk": ((L, d, KH, dh), ("layers", "fsdp", "kv_heads", None), "dense"),
+        "wv": ((L, d, KH, dh), ("layers", "fsdp", "kv_heads", None), "dense"),
+        "wo": ((L, H, dh, d), ("layers", "heads", None, "fsdp"), "dense"),
+        "ln1": ((L, d), ("layers", None), "ones"),
+        "ln2": ((L, d), ("layers", None), "ones"),
     }
     if cfg.use_qk_norm:
-        layout["q_norm"] = ((dh,), "ones")
-        layout["k_norm"] = ((dh,), "ones")
-    layout["w_gate"] = ((d, cfg.d_ff), "dense")
-    layout["w_up"] = ((d, cfg.d_ff), "dense")
-    layout["w_down"] = ((cfg.d_ff, d), "dense")
-    return layout
-
-
-def _model_layout(cfg: LMConfig) -> Dict[str, tuple]:
-    layout = {"embed": ((cfg.vocab, cfg.d_model), "embed"),
-              "final_ln": ((cfg.d_model,), "ones")}
+        layer["q_norm"] = ((L, dh), ("layers", None), "ones")
+        layer["k_norm"] = ((L, dh), ("layers", None), "ones")
+    if cfg.moe:
+        E, F = cfg.moe.n_experts, cfg.moe.d_ff
+        moe: Dict[str, Any] = {
+            "router": ((L, d, E), ("layers", None, None), "dense"),
+            "w_gate": ((L, E, d, F), ("layers", "experts", "fsdp", None), "dense"),
+            "w_up": ((L, E, d, F), ("layers", "experts", "fsdp", None), "dense"),
+            "w_down": ((L, E, F, d), ("layers", "experts", None, "fsdp"), "dense"),
+        }
+        if cfg.moe.n_shared:
+            Fs = F * cfg.moe.n_shared
+            moe["shared"] = {
+                "w_gate": ((L, d, Fs), ("layers", "fsdp", "mlp"), "dense"),
+                "w_up": ((L, d, Fs), ("layers", "fsdp", "mlp"), "dense"),
+                "w_down": ((L, Fs, d), ("layers", "mlp", "fsdp"), "dense"),
+            }
+        layer["moe"] = moe
+    else:
+        layer["w_gate"] = ((L, d, cfg.d_ff), ("layers", "fsdp", "mlp"), "dense")
+        layer["w_up"] = ((L, d, cfg.d_ff), ("layers", "fsdp", "mlp"), "dense")
+        layer["w_down"] = ((L, cfg.d_ff, d), ("layers", "mlp", "fsdp"), "dense")
+    tree: Dict[str, Any] = {
+        "embed": ((cfg.vocab, d), ("vocab", None), "embed"),
+        "layers": layer,
+        "final_ln": ((d,), (None,), "ones"),
+    }
     if not cfg.tie_embeddings:
-        layout["lm_head"] = ((cfg.d_model, cfg.vocab), "dense")
-    return layout
+        tree["lm_head"] = ((d, cfg.vocab), ("fsdp", "vocab"), "dense")
+    return tree
+
+
+def param_shapes(cfg: LMConfig):
+    """The parameter tree's shapes (tuples), allocating nothing."""
+    return tree_map(lambda leaf: leaf[0], _layout(cfg))
+
+
+def param_axes(cfg: LMConfig):
+    """The parameter tree's logical-axis tuples."""
+    return tree_map(lambda leaf: leaf[1], _layout(cfg))
 
 
 def _draw(shape, kind, cfg: LMConfig, generator, device) -> torch.Tensor:
     """The reference's rule (``init_params``): ones, a unit normal for the
     embedding, and a normal over sqrt(shape[-2]) for every dense weight — the
-    last-but-one axis of the weight's shape (H for ``wq``, not d), drawn in
+    last-but-one axis of the stacked shape (H for ``wq``, not d), drawn in
     float32 and rounded to the model's dtype."""
     if kind == "ones":
         return torch.ones(shape, dtype=cfg.dtype, device=device)
@@ -119,39 +181,53 @@ def _draw(shape, kind, cfg: LMConfig, generator, device) -> torch.Tensor:
     return t.to(cfg.dtype)
 
 
-def _params(weights: Dict[str, torch.Tensor], layout: Dict[str, tuple], where: str):
-    """The weights as frozen parameters, each checked against its shape."""
-    out = {}
-    for name, (shape, _) in layout.items():
-        t = weights[name]
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{where}{name}: shape {tuple(t.shape)}, expected {shape}")
-        out[name] = nn.Parameter(t, requires_grad=False)
-    return out
+def _parameters(tree, layout, where: str = ""):
+    """``tree`` as parameters that take gradients, each leaf checked against
+    the layout's shape."""
+    if isinstance(layout, dict):
+        missing = sorted(set(layout) - set(tree))
+        if missing:
+            raise ValueError(f"{where or 'params'}: missing {missing}")
+        return {k: _parameters(tree[k], v, f"{where}{k}/") for k, v in layout.items()}
+    shape = layout[0]
+    if tuple(tree.shape) != shape:
+        raise ValueError(f"{where[:-1]}: shape {tuple(tree.shape)}, expected {shape}")
+    return nn.Parameter(tree.detach(), requires_grad=True)
 
 
-class Block(nn.Module):
-    def __init__(self, cfg: LMConfig, weights: Dict[str, torch.Tensor], where: str = ""):
-        super().__init__()
-        for name, p in _params(weights, _block_layout(cfg), where).items():
-            setattr(self, name, p)
+class Block:
+    """Layer ``index``'s weights under the reference's per-layer names, each
+    a view of the stacked parameter (``blk.moe`` a dict of views)."""
+
+    def __init__(self, index: int, weights: Dict[str, Any]):
+        self.index = index
+        self.__dict__.update(weights)
+
+
+def _blocks(layers: Dict[str, Any], n_layers: int):
+    """Every layer's ``Block``: one ``unbind`` per stacked leaf, so a pass
+    over the layers makes one view op (and, under autograd, one backward
+    node) per leaf rather than one per leaf and layer."""
+    per_leaf = tree_map(lambda p: torch.unbind(p, 0), layers)
+    return [Block(i, tree_map(lambda views, i=i: views[i], per_leaf)) for i in range(n_layers)]
 
 
 class LM(nn.Module):
-    """The weights of a dense decoder-only LM: ``weights`` holds the model's
-    own (``embed``, ``final_ln``, ``lm_head``), ``blocks`` one dict per
-    layer.  ``init_lm`` draws them, ``params_from_numpy`` carries the
+    """A decoder-only LM's parameters: ``params`` is the reference's tree of
+    stacked leaves; ``layers`` the per-layer views (made anew at each
+    access).  ``init_lm`` draws them, ``params_from_numpy`` carries the
     reference's over."""
 
-    def __init__(self, cfg: LMConfig, weights: Dict[str, torch.Tensor], blocks):
+    def __init__(self, cfg: LMConfig, params: Dict[str, Any]):
         super().__init__()
         self.cfg = cfg
-        for name, p in _params(weights, _model_layout(cfg), "").items():
-            setattr(self, name, p)
-        self.layers = nn.ModuleList(Block(cfg, b, f"layers[{i}].")
-                                    for i, b in enumerate(blocks))
-        if len(self.layers) != cfg.n_layers:
-            raise ValueError(f"{len(self.layers)} blocks for {cfg.n_layers} layers")
+        self.params = _parameters(params, _layout(cfg))
+        for path, p in tree_items(self.params):
+            self.register_parameter(path.replace("/", "__"), p)
+
+    @property
+    def layers(self):
+        return _blocks(self.params["layers"], self.cfg.n_layers)
 
     @property
     def device(self) -> torch.device:
@@ -168,12 +244,10 @@ def init_lm(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
     gdev = generator.device
     if gdev.type != device.type or device.index not in (None, gdev.index):
         raise ValueError(f"init_lm: the generator is on {gdev}, the weights go to {device}")
-    weights = {name: _draw(shape, kind, cfg, generator, device)
-               for name, (shape, kind) in _model_layout(cfg).items()}
-    blocks = [{name: _draw(shape, kind, cfg, generator, device)
-               for name, (shape, kind) in _block_layout(cfg).items()}
-              for _ in range(cfg.n_layers)]
-    return LM(cfg, weights, blocks)
+    with torch.no_grad():
+        params = tree_map(lambda leaf: _draw(leaf[0], leaf[2], cfg, generator, device),
+                          _layout(cfg))
+    return LM(cfg, params)
 
 
 def _as_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -190,11 +264,25 @@ def params_from_numpy(tree: Dict, cfg: LMConfig, device=None) -> LM:
     stacked [L, ...], as ``init_params`` returns them) as the port's ``LM``,
     on ``device`` (the first CUDA card unless given)."""
     device = resolve_device(device)
-    weights = {name: _as_tensor(tree[name], device) for name in _model_layout(cfg)}
-    blocks = [{name: _as_tensor(tree["layers"][name][i], device)
-               for name in _block_layout(cfg)}
-              for i in range(cfg.n_layers)]
-    return LM(cfg, weights, blocks)
+    return LM(cfg, tree_map(lambda _, a: _as_tensor(a, device), _layout(cfg), tree))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        try:
+            import ml_dtypes
+        except ImportError:
+            raise TypeError("a bfloat16 leaf needs ml_dtypes to become a numpy array") \
+                from None
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(model: LM) -> Dict:
+    """The inverse of ``params_from_numpy``: the reference's stacked tree as
+    numpy arrays (bfloat16 leaves as ml_dtypes' bfloat16)."""
+    return tree_map(_to_numpy, model.params)
 
 
 # ---------------------------------------------------------------------------
@@ -207,14 +295,19 @@ def _proj(x, w):
     return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:])
 
 
-def _ffn(blk, x):
+def _ffn(cfg: LMConfig, blk, x):
+    """The block's FFN over x [..., d]: (out, MoE auxiliary loss; 0 when dense)."""
     dt = x.dtype
-    return swiglu(x, blk.w_gate.to(dt), blk.w_up.to(dt), blk.w_down.to(dt))
+    if cfg.moe:
+        flat, aux = moe_ffn(blk.moe, x.reshape(-1, x.shape[-1]), cfg.moe)
+        return flat.reshape(x.shape), aux
+    out = swiglu(x, blk.w_gate.to(dt), blk.w_up.to(dt), blk.w_down.to(dt))
+    return out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def layer_forward(cfg: LMConfig, blk, h, rot):
-    """One block over a whole sequence: h [B, S, d] -> (h, k, v); ``rot``
-    is the sequence's ``rope_tables``."""
+    """One block over a whole sequence: h [B, S, d] -> (h, k, v, aux);
+    ``rot`` is the sequence's ``rope_tables``."""
     B, S, _ = h.shape
     x = rms_norm(h, blk.ln1)
     q = _proj(x, blk.wq.to(x.dtype))
@@ -228,8 +321,8 @@ def layer_forward(cfg: LMConfig, blk, h, rot):
     attn = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                            kv_chunk=cfg.kv_chunk)
     h = h + attn.reshape(B, S, -1) @ blk.wo.to(x.dtype).reshape(-1, cfg.d_model)
-    h = h + _ffn(blk, rms_norm(h, blk.ln2))
-    return h, k, v
+    ff, aux = _ffn(cfg, blk, rms_norm(h, blk.ln2))
+    return h + ff, k, v, aux
 
 
 def _logits(model: LM, h):
@@ -238,15 +331,26 @@ def _logits(model: LM, h):
 
 
 def forward(model: LM, tokens):
-    """tokens [B, S] -> logits [B, S, vocab] (float32)."""
+    """tokens [B, S] -> (logits [B, S, vocab] float32, summed MoE aux loss)."""
     cfg = model.cfg
     B, S = tokens.shape
     h = model.embed[tokens].to(cfg.dtype)
     rot = rope_tables(torch.arange(S, device=h.device).expand(B, S), cfg.head_dim,
                       cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in model.layers:
-        h, _, _ = layer_forward(cfg, blk, h, rot)
-    return _logits(model, h)
+        h, _, _, a = layer_forward(cfg, blk, h, rot)
+        aux = aux + a
+    return _logits(model, h), aux
+
+
+def loss_fn(model: LM, batch: Dict[str, torch.Tensor], aux_weight: float = 0.01):
+    """Cross-entropy of ``batch["labels"]`` (masked by ``batch["mask"]``
+    when present) plus ``aux_weight`` x the MoE auxiliary loss; returns
+    (loss, {"ce", "aux"})."""
+    logits, aux = forward(model, batch["tokens"])
+    ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +371,8 @@ def layer_decode(cfg: LMConfig, blk, h, kc, vc, slot, rot):
     (rows, cache_len, attend): the token's K/V are written at
     ``[rows, cache_len]`` of kc / vc ([B, S, KH, Dh]) in place, and each row
     attends over its first ``attend`` (int32) positions; ``rot`` is the
-    tokens' ``rope_tables``."""
+    tokens' ``rope_tables``.  A MoE block dispatches the B tokens as one
+    batch, so its capacity follows B."""
     rows, cache_len, attend = slot
     B = h.shape[0]
     x = rms_norm(h, blk.ln1)
@@ -283,9 +388,10 @@ def layer_decode(cfg: LMConfig, blk, h, kc, vc, slot, rot):
     vc[rows, cache_len] = v.to(vc.dtype)
     attn = decode_attention(q, kc, vc, attend)
     h = h + attn.reshape(B, -1) @ blk.wo.to(x.dtype).reshape(-1, cfg.d_model)
-    return h + _ffn(blk, rms_norm(h, blk.ln2))
+    return h + _ffn(cfg, blk, rms_norm(h, blk.ln2))[0]
 
 
+@torch.inference_mode()
 def decode_step(model: LM, cache, tokens, cache_len):
     """One decode step with per-slot cache lengths (continuous batching).
 
@@ -306,6 +412,7 @@ def decode_step(model: LM, cache, tokens, cache_len):
     return _logits(model, h), cache
 
 
+@torch.inference_mode()
 def prefill(model: LM, tokens, max_seq: Optional[int] = None):
     """Forward over the prompt, materialising the KV cache.
 
@@ -320,11 +427,12 @@ def prefill(model: LM, tokens, max_seq: Optional[int] = None):
                       cfg.rope_theta)
     cache = init_cache(cfg, B, max_seq, device=h.device)
     for i, blk in enumerate(model.layers):
-        h, k, v = layer_forward(cfg, blk, h, rot)
+        h, k, v, _ = layer_forward(cfg, blk, h, rot)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     return _logits(model, h[:, -1]), cache
 
 
-__all__ = ["LMConfig", "LM", "init_lm", "params_from_numpy", "forward", "init_cache",
-           "decode_step", "prefill", "layer_forward", "layer_decode"]
+__all__ = ["LMConfig", "MoEConfig", "LM", "init_lm", "params_from_numpy", "params_to_numpy",
+           "param_shapes", "param_axes", "forward", "loss_fn", "init_cache", "decode_step",
+           "prefill", "layer_forward", "layer_decode"]

@@ -14,6 +14,7 @@ from repro_torch.core.temporal_graph import from_edges
 from repro_torch.data import generators as tgen
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models.transformer import init_cache, init_lm, params_from_numpy
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -34,6 +35,11 @@ def test_port_imports_no_jax():
         "import repro_torch.core.onepass, repro_torch.engine.queries\n"
         "import repro_torch.configs, repro_torch.models.transformer\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "import repro_torch.models.moe, repro_torch.tree, repro_torch.data.tokens\n"
+        "import repro_torch.train.optimizer, repro_torch.train.train_step\n"
+        "import repro_torch.train.checkpoint, repro_torch.train.elastic\n"
+        "import repro_torch.distributed.compression, repro_torch.distributed.sharding\n"
+        "import repro_torch.configs.families, repro_torch.launch.train\n"
         "from repro_torch.kernels import launch_counts\n"
         "assert set(launch_counts()) == {'segment_min_tiles',\n"
         "    'temporal_relax_min_tiles', 'segment_spmm_tiles', 'decode_attention'}\n"
@@ -63,6 +69,8 @@ def test_port_imports_no_jax():
     lambda: launch_serve.main(["--graph", "--advances", "1"]),
     lambda: launch_serve.main(["--graph", "--daemon", "--ticks", "1",
                                "--history-chunks", "64"]),
+    lambda: launch_train.main(["--scale", "smoke", "--steps", "1"]),
+    lambda: get_arch("qwen3-moe-30b-a3b").smoke(),
 ])
 def test_entry_points_need_a_card_or_an_explicit_device(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -716,3 +716,79 @@ def test_serve_engine_on_card_matches_cpu(cuda):
     assert t1 == t0 and s1 == s0
     assert s1.tokens_generated == sum(budgets) and s1.requests_completed == 5
     assert n0 == 0 and n1 == model.cfg.n_layers * s1.steps
+
+
+def _moe_lm():
+    from repro_torch.models.moe import MoEConfig
+
+    cfg = ttf.LMConfig(name="moe-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                       d_head=16, d_ff=0, vocab=128, use_qk_norm=True, dtype=torch.float32,
+                       q_chunk=16, kv_chunk=16,
+                       moe=MoEConfig(n_experts=8, top_k=2, d_ff=32, n_shared=1,
+                                     capacity_factor=4.0))
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(9)
+    return ttf.init_lm(cfg, gen, "cpu")
+
+
+def test_moe_serve_engine_on_card_matches_cpu(cuda):
+    """A MoE model (capacity factor E / K: nothing dropped) served on the
+    card emits the CPU run's tokens, with K4 once per layer per step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _moe_lm()
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 128, n).astype(np.int32) for n in (5, 16, 9, 12)]
+    runs = []
+    for dev in ("cpu", cuda):
+        engine = ServeEngine(model.to(dev), batch_slots=3, max_seq=32)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        reset_launch_counts()
+        stats = engine.run()
+        runs.append(([r.generated for r in reqs], stats,
+                     launch_counts()["decode_attention"]))
+    (t0, s0, n0), (t1, s1, n1) = runs
+    assert t1 == t0 and s1 == s0
+    assert n0 == 0 and n1 == model.cfg.n_layers * s1.steps
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_on_card_matches_cpu(cuda, microbatches):
+    """Two AdamW steps of a MoE model from the same weights and batches on
+    the card and on the CPU, float32 matmuls in full precision: losses
+    within rtol 1e-5, every parameter within 2.5 lr (an entry whose gradient
+    rounds to the other sign lands up to 2 lr away after a first step; the
+    CPU tests' bound against JAX)."""
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = _moe_lm()
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, 128, (3, 4, 32)).astype(np.int32)
+    lr = 1e-3
+    runs = []
+    for dev in ("cpu", cuda):
+        model = ttf.LM(base.cfg, _tree_copy(base.params, dev))
+        opt = make_optimizer("adamw", lr)
+        tcfg = TrainConfig(microbatches=microbatches)
+        step = make_train_step(lambda p, b, m=model: ttf.loss_fn(m, b), opt, tcfg)
+        state = init_train_state(model.params, opt, tcfg)
+        losses = []
+        for i in range(2):
+            batch = {"tokens": torch.as_tensor(toks[i], device=dev),
+                     "labels": torch.as_tensor(toks[i + 1], device=dev)}
+            _, state, m = step(model.params, state, batch)
+            losses.append(float(m["loss"]))
+        runs.append((losses, model))
+    (l0, m0), (l1, m1) = runs
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    for a, b in zip(m1.parameters(), m0.parameters()):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 2.5 * lr
+
+
+def _tree_copy(tree, device):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda p: p.detach().to(device).clone(), tree)

@@ -155,12 +155,32 @@ def test_decode_matches_full_attention():
     np.testing.assert_allclose(got.numpy(), full[:, -1], **ATTN_TOL)
 
 
+def test_cross_entropy_masked():
+    """``test_models.py``'s masked cross-entropy, on the port, and both
+    forms against the reference on random logits (float32, rtol 1e-6)."""
+    logits = torch.tensor([[[2.0, 0.0], [0.0, 2.0]]])
+    labels = torch.tensor([[0, 0]])
+    mask = torch.tensor([[1.0, 0.0]])
+    assert float(tl.softmax_cross_entropy(logits, labels, mask)) < \
+        float(tl.softmax_cross_entropy(logits, labels))
+    rng = np.random.default_rng(3)
+    lg = (rng.standard_normal((3, 7, 50)) * 5).astype(np.float32)
+    lb = rng.integers(0, 50, (3, 7)).astype(np.int32)
+    mk = (rng.random((3, 7)) < 0.5).astype(np.float32)
+    for m in (None, mk, np.zeros_like(mk)):
+        want = jl.softmax_cross_entropy(jnp.asarray(lg), jnp.asarray(lb),
+                                        None if m is None else jnp.asarray(m))
+        got = tl.softmax_cross_entropy(_t(lg), _t(lb), None if m is None else _t(m))
+        assert float(got) == pytest.approx(float(want), rel=1e-6, abs=1e-7)
+
+
 # ---------------------------------------------------------------------------
 # configs and weights
 # ---------------------------------------------------------------------------
 
 def test_registry_carries_the_reference_widths():
-    assert list_archs() == ["phi4-mini-3.8b", "smollm-135m"]
+    assert list_archs() == ["kimi-k2-1t-a32b", "mistral-large-123b", "phi4-mini-3.8b",
+                            "qwen3-moe-30b-a3b", "smollm-135m"]
     with pytest.raises(KeyError):
         get_arch("nope")
     fields = [f.name for f in dataclasses.fields(ttf.LMConfig) if f.name != "dtype"]
@@ -190,10 +210,11 @@ def test_init_draws_the_reference_distribution():
                        ("lm_head", ref["lm_head"])]:
         got = blocks[name] if name in blocks else getattr(model, name)
         assert got.shape == want.shape and got.device.type == "cpu"
-        assert float(got.std()) == pytest.approx(float(jnp.std(want)), rel=0.1), name
+        assert float(got.detach().std()) == pytest.approx(float(jnp.std(want)), rel=0.1), name
     assert float(blocks["wq"].std()) == pytest.approx(1 / np.sqrt(tcfg.n_heads), rel=0.1)
     assert (blocks["ln1"] == 1).all() and (model.final_ln == 1).all()
-    assert not any(p.requires_grad for p in model.parameters())
+    # the weights take gradients (training); serving runs under inference_mode
+    assert all(p.requires_grad for p in model.parameters())
 
 
 def test_params_from_numpy_carries_bfloat16_bits():
@@ -204,8 +225,8 @@ def test_params_from_numpy_carries_bfloat16_bits():
     tree = jax.tree_util.tree_map(np.asarray, jtf.init_params(jax.random.PRNGKey(3), jcfg))
     model = ttf.params_from_numpy(tree, tcfg, "cpu")
     assert model.embed.dtype == torch.bfloat16
-    assert (model.embed.view(torch.int16).numpy() == tree["embed"].view(np.int16)).all()
-    wq = model.layers[1].wq.view(torch.int16).numpy()
+    assert (model.embed.detach().view(torch.int16).numpy() == tree["embed"].view(np.int16)).all()
+    wq = model.layers[1].wq.detach().view(torch.int16).numpy()
     assert (wq == tree["layers"]["wq"][1].view(np.int16)).all()
     with pytest.raises(ValueError, match="shape"):
         ttf.params_from_numpy(tree, dataclasses.replace(tcfg, d_ff=64), "cpu")
@@ -220,9 +241,10 @@ def test_forward_matches_jax(name):
     params, jcfg, model = _both_models(name)
     toks = _tokens(jcfg.vocab, (2, 32), seed=1)
     want, _ = jtf.forward(params, jnp.asarray(toks), jcfg)
-    got = ttf.forward(model, _t(toks))
+    got, aux = ttf.forward(model, _t(toks))
     assert got.dtype == torch.float32 and got.shape == (2, 32, jcfg.vocab)
-    assert_logits_close(got.numpy(), want)
+    assert_logits_close(got.detach().numpy(), want)
+    assert float(aux) == 0.0  # dense: no MoE auxiliary loss
 
 
 @pytest.mark.parametrize("name", list(SMOKES))
@@ -270,13 +292,13 @@ def test_prefill_decode_match_forward(name):
         _, _, model = _both_models(name, seed=5)
         cfg = model.cfg
     toks = _t(_tokens(cfg.vocab, (2, 16), seed=5))
-    logits = ttf.forward(model, toks)
+    logits = ttf.forward(model, toks)[0].detach()
     last, cache = ttf.prefill(model, toks, max_seq=32)
     np.testing.assert_allclose(last.numpy(), logits[:, -1].numpy(), rtol=1e-5, atol=1e-5)
     nxt = torch.argmax(last, -1).to(torch.int32)
     dl, _ = ttf.decode_step(model, cache, nxt, torch.full((2,), 16, dtype=torch.int32))
     toks17 = torch.cat([toks, nxt[:, None]], 1)
-    lg = ttf.forward(model, torch.nn.functional.pad(toks17, (0, 15)))
+    lg = ttf.forward(model, torch.nn.functional.pad(toks17, (0, 15)))[0].detach()
     np.testing.assert_allclose(dl.numpy(), lg[:, 16].numpy(), rtol=2e-4, atol=2e-4)
 
 
@@ -289,7 +311,8 @@ def test_tied_embeddings_have_no_lm_head():
     model = ttf.init_lm(cfg, gen, "cpu")
     assert not hasattr(model, "lm_head")
     assert "lm_head" not in dict(model.named_parameters())
-    logits = ttf.forward(model, torch.zeros((1, 8), dtype=torch.int32))
+    assert "lm_head" not in model.params
+    logits, _ = ttf.forward(model, torch.zeros((1, 8), dtype=torch.int32))
     assert logits.shape == (1, 8, 32)
     # the tied smoke config against the reference's
     params, jcfg, tmodel = _both_models("smollm", seed=6)
@@ -328,6 +351,7 @@ def test_reference_init_amplifies_rounding_with_depth(n_layers):
     for i, blk in enumerate(model.layers):
         lp = jax.tree_util.tree_map(lambda x, i=i: x[i], params["layers"])
         h_next, _ = jtf._layer_body(jcfg, h, lp, positions)
-        got, _, _ = ttf.layer_forward(tcfg, blk, _t(h), rot)
+        with torch.no_grad():
+            got, _, _, _ = ttf.layer_forward(tcfg, blk, _t(h), rot)
         assert_logits_close(got.numpy(), h_next)
         h = h_next

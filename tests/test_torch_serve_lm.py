@@ -36,7 +36,7 @@ def _greedy_reference(model, prompt, n_new, pad_to):
     for _ in range(n_new):
         arr = np.zeros((1, pad_to), np.int32)
         arr[0, : len(toks)] = toks
-        logits = ttf.forward(model, torch.as_tensor(arr))
+        logits, _ = ttf.forward(model, torch.as_tensor(arr))
         toks.append(int(torch.argmax(logits[0, len(toks) - 1])))
     return toks[len(prompt):]
 
