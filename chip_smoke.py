@@ -92,7 +92,9 @@
    serving run on 4 layers at capacity factor 16 (nothing dropped, so the
    served tokens check against ``forward``), launch counts reset just
    before and read just after (K4 launches = 4 x decode steps); 8 train
-   steps on 2 layers (losses finite and falling).
+   steps on 2 layers (losses finite and falling); every decode block in
+   bfloat16 held to the dense criterion (``LM_LAYER_TOL``), as MoE routing
+   breaks exact ties by expert id.
 11. LM training through ``launch/train.py`` at smollm-135m's published
    config (30 layers, bfloat16, batch 8 x 512): 40 steps with a checkpoint
    every 20, then a fresh run resumed from step 20, both under
@@ -101,12 +103,43 @@
    one float32 step on the card against the CPU and 2 microbatches against
    one batch (2 layers); ms per step, tokens/s, peak memory and a profiled
    step's idle share.
-12. Prints the kernel table as one JSON line (each kernel's launches on
+12. The paper's cells (``configs/kairos.py``'s six KAIROS_CELLS), launch
+   counts read around them (K1–K4 launch 0 times: the reference runs no
+   Pallas kernel there): |V| = 1e7, |E| = 1e9 drawn on the card from
+   ``--seed`` with ``synthetic_temporal_graph``'s distributions (start-time
+   gaps Poisson(1), not 2, so end times stay in int32) and sorted per
+   shard by time, then the distributed engine on a one-rank NCCL group:
+   ``ea_selective_1b`` (128 sources, a window of at most 2^17 edges)
+   against numpy on the window's edges, ``ea_selsparse_1b`` and
+   ``ea_scan_1b`` (2 sources: cut from 128) equal to it, ``ea_scan_1b`` and
+   ``ea_sparse_1b`` on a wide window (the EA equation at seeded sampled
+   vertices, numpy on their in-edges; sparse equal to scan), ``cc_1b``
+   (round 1 against numpy at the sampled vertices, then the fixpoint's
+   labels checked along every edge) and ``pagerank_1b`` (rounds against a
+   float64 numpy oracle at the sampled vertices): ms per round and per
+   warm query, a profiled selective query and CC round; then
+   ``KairosFamily.smoke`` on the card.
+13. The GNN, NequIP and MIND models at their published widths, launch
+   counts read around them (0 again): graphsage-reddit at minibatch_lg (a
+   graph of Reddit's shape, 232,965 vertices and 114,615,892 edges, 602
+   features, from ``--seed``; ``NeighborSampler`` fanout (15, 10), 1,024
+   seeds, padded to 169,984 nodes; one float32 step from the initial
+   weights on the card against the CPU, then 10 AdamW steps: host
+   sampling and device ms, a profiled step's idle share and
+   ``index_add``'s share); gcn-cora at full_graph_sm and gin-tu at
+   molecule (20 steps each); nequip at molecule (128 x 30 atoms, 5
+   layers, 32 channels, l_max 2: energy-MSE steps, energies invariant and
+   forces equivariant under a seeded rotation); mind with its 1e8 x 64
+   table (serve_p99 at B 512, retrieval_cand over 1e6 candidates: the ids
+   equal a stable sort of the same scores on the CPU) and train_batch
+   (65,536 users) on a table cut to 1e7 rows.
+14. Prints the kernel table as one JSON line (each kernel's launches on
    the counted paths of items 4–7, 9 and 10, the ladder phase's, the
    history/daemon phase's, the distributed phase's, the MoE serving
-   phase's and the training phase's also apart, K4 at the MoE decode
-   shape, and K1's launches inside laddered solves), then the result
-   line.
+   phase's, the training phase's, the Kairos and the models phases' also
+   apart, K4 at the MoE decode shape, and K1's launches inside laddered
+   solves), then the result line.  Each phase logs its wall time and its
+   peak device memory.
 
 Any mismatch raises, and the script exits non-zero.  It imports nothing
 of JAX or of the JAX package.
@@ -2876,10 +2909,9 @@ def check_served_tokens(torch, np, model, reqs):
             f"{h_med:.3g}, max {h_max:.3g}; with K4's plain version: median "
             f"{np.median(errs[:, 3]):.3g}, max {plain_max:.3g}; of the written K/V: max "
             f"{kv_max:.3g} (tol {LM_LAYER_TOL[name]:.3g})")
-        # bfloat16 MoE: a near-tied router score rounds either way, and the
-        # block then mixes another expert (reported, not required)
-        worst = (float(errs.max()) if name == "float32" else max(kv_max, h_med)
-                 if cfg.moe else max(kv_max, h_med, plain_max))
+        # MoE blocks too: routing breaks exact ties by expert id (a stable
+        # sort) in forward and in a decode step alike
+        worst = float(errs.max()) if name == "float32" else max(kv_max, h_med, plain_max)
         if worst > LM_LAYER_TOL[name]:
             raise AssertionError(f"[lm] decode blocks off forward's in {name}: "
                                  f"{worst:.3g} > {LM_LAYER_TOL[name]:.3g}")
@@ -3405,6 +3437,862 @@ def moe_path(torch, np, seed, k4, device="cuda"):
     return records, k4_rec, counts
 
 
+# ---------------------------------------------------------------------------
+# the paper's cells at |V| = 1e7, |E| = 1e9 (configs/kairos.py)
+# ---------------------------------------------------------------------------
+
+KAIROS_VERTICES = 10_000_000
+KAIROS_EDGES = 1_000_000_000
+# synthetic_temporal_graph draws start-time gaps ~ Poisson(2): at 1e9 edges
+# its end times would reach 2.2e9, past int32; Poisson(1) keeps them < 1.1e9
+KAIROS_POISSON_LAM = 1.0
+KAIROS_CHUNK = 1 << 27          # elements a pass while generating and checking
+# ea_scan_1b / ea_sparse_1b: S cut from 128 to 2 (the reference's round
+# holds [S, E] candidate, id and mask arrays, 13 B an element: 26 GB at S 2)
+KAIROS_SCAN_SOURCES = 2
+KAIROS_MAX_ROUNDS = 100_000     # the EA loops stop at their fixpoint
+KAIROS_CC_MAX_ROUNDS = 200
+KAIROS_PR_ROUNDS = 10
+KAIROS_SAMPLE = 128             # sampled destinations per draw (by in-degree, uniform)
+KAIROS_PR_TOL = dict(rtol=1e-5, atol=1e-7)  # test_torch_distributed.py's
+
+
+def _slices(n, per=None):
+    per = per or KAIROS_CHUNK
+    return [slice(lo, min(lo + per, n)) for lo in range(0, n, per)]
+
+
+def kairos_edges(torch, n_v, n_e, seed, device):
+    """The paper's synthetic graph drawn on the device from ``seed``, with
+    ``synthetic_temporal_graph``'s distributions (not its numpy draws):
+    endpoints of lognormal rank, start times the cumulative sum of Poisson
+    gaps (rate KAIROS_POISSON_LAM) in a random order, durations uniform up
+    to a tenth of the last start.  Returns int32 (src, dst, t_start, t_end)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    chunks = _slices(n_e)
+
+    def pick():
+        raw = torch.empty(n_e, dtype=torch.float32, device=device).normal_(generator=gen)
+        raw.exp_()
+        scale = (n_v - 1) / raw.max()
+        out = torch.empty(n_e, dtype=torch.int32, device=device)
+        for sl in chunks:
+            out[sl] = (raw[sl] * scale).to(torch.int32).clamp_(0, n_v - 1)
+        return out
+
+    src = pick()
+    dst = pick()
+    for sl in chunks:
+        d = dst[sl]
+        d.copy_(torch.where(src[sl] == d, torch.remainder(d + 1, n_v), d))
+    t = torch.empty(n_e, dtype=torch.int32, device=device)
+    carry = 0
+    for sl in chunks:
+        rate = torch.full((sl.stop - sl.start,), KAIROS_POISSON_LAM, device=device)
+        c = torch.poisson(rate, generator=gen).to(torch.int64).cumsum(0) + carry
+        t[sl] = c.to(torch.int32)
+        carry = int(c[-1])
+    keys = torch.randint(0, 2**31 - 1, (n_e,), dtype=torch.int32, device=device,
+                         generator=gen)
+    perm = torch.sort(keys)[1]          # the reference's shuffle of the start times
+    del keys
+    ts = t[perm]
+    del t, perm
+    max_duration = max(int(ts.max()) // 10, 1)
+    te = torch.empty_like(ts)
+    for sl in chunks:
+        te[sl] = ts[sl] + torch.randint(0, max_duration + 1, (sl.stop - sl.start,),
+                                        dtype=torch.int32, device=device, generator=gen)
+    return src, dst, ts, te
+
+
+def marked_edges(torch, np, mark, key, edges, window):
+    """Host numpy (src, dst, ts, te) of the window's edges whose ``key``
+    endpoint (``edges[0]`` or ``edges[1]``) is marked, found on the card a
+    chunk at a time."""
+    src, dst, ts, te, valid = edges
+    ta, tb = window
+    found = []
+    for sl in _slices(src.shape[0]):
+        m = mark[key[sl].long()] & valid[sl] & (ts[sl] >= ta) & (te[sl] <= tb)
+        found.append(m.nonzero()[:, 0] + sl.start)
+    idx = torch.cat(found)
+    return tuple(a[idx].cpu().numpy() for a in (src, dst, ts, te))
+
+
+def sampled_vertices(torch, np, rng, edges, n_v):
+    """KAIROS_SAMPLE destinations of seeded random edges (by in-degree) and
+    KAIROS_SAMPLE uniform vertices, unique, on the host."""
+    pos = torch.as_tensor(rng.integers(0, edges[0].shape[0], KAIROS_SAMPLE),
+                          device=edges[1].device)
+    by_degree = edges[1][pos].cpu().numpy()
+    return np.unique(np.concatenate([by_degree, rng.integers(0, n_v, KAIROS_SAMPLE)]))
+
+
+def window_ea_oracle(np, s, d, t1, t2, sources, ta):
+    """Earliest arrival from each source over the given edges (all inside
+    the window), in numpy: (rows, vertices, arrivals) of every reached
+    vertex, in row-major order."""
+    sources = np.asarray(sources)
+    verts = np.unique(np.concatenate([s, d, sources]))
+    si, di = np.searchsorted(verts, s), np.searchsorted(verts, d)
+    S = len(sources)
+    arr = np.full((S, len(verts)), INF, np.int64)
+    arr[np.arange(S), np.searchsorted(verts, sources)] = ta
+    rows = np.repeat(np.arange(S), len(s))
+    while True:
+        a = arr[:, si]
+        cand = np.where((a <= t1) & (a < INF), t2, INF)
+        new = arr.copy()
+        np.minimum.at(new, (rows, np.tile(di, S)), cand.reshape(-1))
+        if (new == arr).all():
+            break
+        arr = new
+    r, c = np.nonzero(arr < INF)
+    return r, verts[c], arr[r, c]
+
+
+def reached(torch, out):
+    """(rows, vertices, arrivals) of the finite entries of an [S, V] EA
+    result, on the host, in row-major order."""
+    nz = (out < INF).nonzero()
+    vals = out[nz[:, 0], nz[:, 1]]
+    return nz[:, 0].cpu().numpy(), nz[:, 1].cpu().numpy(), vals.cpu().numpy()
+
+
+def ea_fixpoint_misses(torch, np, out, arr0, edges, window, verts):
+    """At each sampled vertex v and source row r: out[r, v] must equal
+    min(arr0[r, v], min te over v's window in-edges with out[r, src] <= ts
+    and finite), the EA equation (a numpy oracle on the gathered edges).
+    Returns the number of (row, vertex) pairs that miss."""
+    mark = torch.zeros(out.shape[1], dtype=torch.bool, device=out.device)
+    mark[torch.as_tensor(verts, device=out.device)] = True
+    s, d, t1, t2 = marked_edges(torch, np, mark, edges[1], edges, window)
+    a_src = out[:, torch.as_tensor(s, device=out.device).long()].cpu().numpy()
+    vi = torch.as_tensor(verts, device=out.device).long()
+    want = arr0[:, vi].cpu().numpy().astype(np.int64)
+    col = np.searchsorted(verts, d)
+    for r in range(out.shape[0]):
+        cand = np.where((a_src[r] <= t1) & (a_src[r] < INF), t2, INF)
+        np.minimum.at(want[r], col, cand)
+    return int((want != out[:, vi].cpu().numpy()).sum())
+
+
+def cc_new_labels(torch, np, labels, edges, window, verts):
+    """min(labels[v], labels over v's window in- and out-neighbours) at each
+    of ``verts`` (the CC round before its pointer jump), in numpy on the
+    gathered edges."""
+    dev = labels.device
+    mark = torch.zeros(labels.shape[0], dtype=torch.bool, device=dev)
+    mark[torch.as_tensor(verts, device=dev)] = True
+    lab = labels.cpu().numpy() if labels.numel() < 1 << 20 else None
+    out = labels[torch.as_tensor(verts, device=dev).long()].cpu().numpy().astype(np.int64)
+    for key, other in ((1, 0), (0, 1)):
+        e = marked_edges(torch, np, mark, edges[key], edges, window)
+        nbr = (lab[e[other]] if lab is not None else
+               labels[torch.as_tensor(e[other], device=dev).long()].cpu().numpy())
+        np.minimum.at(out, np.searchsorted(verts, e[key]), nbr)
+    return out
+
+
+def cc_round_misses(torch, np, labels, new, edges, window, verts):
+    """The CC round at the sampled vertices: new[v] = min(n1[v], n1[n1[v]])
+    with n1 the hash-min of ``cc_new_labels`` (its second stage at the
+    vertices the first points to).  Returns the number of misses."""
+    n1 = cc_new_labels(torch, np, labels, edges, window, verts)
+    w = np.unique(n1)
+    n1_w = cc_new_labels(torch, np, labels, edges, window, w)
+    want = np.minimum(n1, n1_w[np.searchsorted(w, n1)])
+    got = new[torch.as_tensor(verts, device=new.device).long()].cpu().numpy()
+    return int((want != got).sum())
+
+
+def pr_round_err(torch, np, pr, new, inv, edges, window, verts, damping=0.85):
+    """The PageRank round at the sampled vertices against a float64 numpy
+    oracle on the gathered in-edges (float32 contributions, as the round):
+    the largest error over tolerance (<= 1 holds KAIROS_PR_TOL)."""
+    dev = pr.device
+    n_v = pr.shape[0]
+    mark = torch.zeros(n_v, dtype=torch.bool, device=dev)
+    mark[torch.as_tensor(verts, device=dev)] = True
+    s, d, _, _ = marked_edges(torch, np, mark, edges[1], edges, window)
+    si = torch.as_tensor(s, device=dev).long()
+    contrib = (pr[si].cpu().numpy() * inv[si].cpu().numpy()).astype(np.float64)
+    agg = np.zeros(len(verts))
+    np.add.at(agg, np.searchsorted(verts, d), contrib)
+    want = (1.0 - damping) / n_v + damping * agg
+    got = new[torch.as_tensor(verts, device=dev).long()].cpu().numpy().astype(np.float64)
+    tol = KAIROS_PR_TOL["atol"] + KAIROS_PR_TOL["rtol"] * np.abs(want)
+    return float((np.abs(got - want) / tol).max())
+
+
+def kairos_profile(torch, device, label, fn) -> dict:
+    """A profiled call's wall and busy microseconds and idle share (on the
+    card only)."""
+    if device != "cuda":
+        return {}
+    prof = profile_query(torch, label, fn, top=6)
+    return dict(wall_us=prof["wall_us"], busy_us=prof["busy_us"],
+                idle_share=1 - prof["busy_us"] / prof["wall_us"])
+
+
+def kairos_path(torch, np, seed, device="cuda"):
+    """The six KAIROS_CELLS on one card, through the distributed engine on
+    a one-rank process group (NCCL; gloo with ``device="cpu"``): the graph
+    drawn on the device (``kairos_edges``) and sorted per shard by time
+    (``sort_edges_by_time_per_shard``); each cell held to an oracle
+    independent of ``graph_engine``; then ``KairosFamily.smoke``.  Returns
+    the records."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.kairos import KAIROS_CELLS, cell_plan
+    from repro_torch.distributed import graph_engine as ge
+    from repro_torch.distributed import init_process_group, make_mesh
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    n_v, n_e = KAIROS_VERTICES, KAIROS_EDGES
+    rng = np.random.default_rng(seed + 11)
+    records = []
+    init_process_group(device, init_method=f"tcp://localhost:{free_port()}",
+                       world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=device)
+        t0 = time.perf_counter()
+        raw = kairos_edges(torch, n_v, n_e, seed, device)
+        sync()
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        edges = ge.sort_edges_by_time_per_shard(mesh, *raw)
+        sync()
+        t_sort = time.perf_counter() - t0
+        del raw
+        src, dst, ts, te, valid = edges
+        t_lo, t_hi = int(ts[0]), int(te.max())
+        log(f"[kairos] {n_v} vertices, {n_e} edges drawn on the card in {t_gen:.2f} s, "
+            f"sorted by time in {t_sort:.2f} s; times {t_lo}..{t_hi}; "
+            f"{4 * 4 * n_e + n_e} bytes of edge arrays")
+        records.append(dict(graph="kairos_1b", cell="setup", generate_s=t_gen,
+                            sort_s=t_sort, vertices=n_v, edges=n_e))
+
+        def run_ea(cell, arr0, window, plan, sorted_edges=True):
+            """The query twice: the first warms the allocator, the second
+            is timed (and must equal the first)."""
+            def once():
+                return ge.run_distributed_ea(
+                    mesh, arr0, edges[:4], valid, window, max_rounds=KAIROS_MAX_ROUNDS,
+                    plan=plan, edges_time_sorted=sorted_edges, with_rounds=True)
+
+            warm, _ = once()
+            sync()
+            t0 = time.perf_counter()
+            out, rounds = once()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(out, warm):
+                raise AssertionError(f"[kairos] {cell}: two runs of one query differ")
+            return out, rounds, ms
+
+        def ea_record(cell, S, window, rounds, ms, oracle, **kw):
+            rec = dict(graph="kairos_1b", cell=cell, sources=S, window=list(window),
+                       rounds=rounds, ms_per_query=ms, ms_per_round=ms / rounds,
+                       oracle=oracle, **kw)
+            log(f"[kairos] {cell}: {S} sources, window {window}, {rounds} rounds in "
+                f"{ms:.1f} ms warm ({ms / rounds:.2f} ms a round); {oracle}")
+            records.append(rec)
+
+        def arrivals0(sources, ta):
+            a = torch.full((len(sources), n_v), INF, dtype=torch.int32, device=device)
+            a[torch.arange(len(sources), device=device),
+              torch.as_tensor(sources, device=device)] = ta
+            return a
+
+        # -- ea_selective_1b: a window of at most budget_per_shard edges ------
+        sel = KAIROS_CELLS["ea_selective_1b"]
+        budget, S = sel.meta["budget_per_shard"], sel.meta["sources"]
+        lo = int(rng.integers(n_e // 4, n_e // 2))
+        ta = int(ts[lo])
+        lo = int(torch.searchsorted(ts, torch.tensor([ta], dtype=ts.dtype, device=device)))
+        tb = int(ts[min(lo + budget, n_e) - 1]) - 1
+        hi = int(torch.searchsorted(ts, torch.tensor([tb], dtype=ts.dtype, device=device),
+                                    right=True))
+        narrow = (ta, tb)
+        w_s, w_d, w_t1, w_t2 = (a[lo:hi].cpu().numpy() for a in (src, dst, ts, te))
+        inside = w_t2 <= tb
+        w_s, w_d, w_t1, w_t2 = w_s[inside], w_d[inside], w_t1[inside], w_t2[inside]
+        starts = np.unique(w_s)
+        sources = rng.choice(starts, min(S, len(starts)), replace=False)
+        if len(sources) < S:
+            rest = np.setdiff1d(rng.integers(0, n_v, 4 * S), sources)
+            sources = np.concatenate([sources, rest[:S - len(sources)]])
+        log(f"[kairos] narrow window {narrow}: {hi - lo} edges start in it (budget "
+            f"{budget}), {int(inside.sum())} lie inside it")
+        oracle = window_ea_oracle(np, w_s, w_d, w_t1, w_t2, sources, ta)
+        arr0 = arrivals0(sources, ta)
+        sel_out, rounds, ms = run_ea("ea_selective_1b", arr0, narrow, cell_plan(sel))
+        got = reached(torch, sel_out)
+        if not all(np.array_equal(g, w) for g, w in zip(got, oracle)):
+            raise AssertionError("[kairos] ea_selective_1b differs from the numpy oracle")
+        ea_record("ea_selective_1b", S, narrow, rounds, ms,
+                  f"all {len(oracle[0])} reached (source, vertex) arrivals equal numpy's "
+                  f"on the window's {len(w_s)} edges", budget=budget,
+                  edges_in_window=hi - lo,
+                  **kairos_profile(torch, device, "[kairos] ea_selective_1b query",
+                                   lambda: ge.run_distributed_ea(
+                                       mesh, arr0, edges[:4], valid, narrow,
+                                       max_rounds=KAIROS_MAX_ROUNDS, plan=cell_plan(sel),
+                                       edges_time_sorted=True)))
+        sel_cell = KAIROS_CELLS["ea_selsparse_1b"]
+        out, rounds, ms = run_ea("ea_selsparse_1b", arr0, narrow, cell_plan(sel_cell))
+        if not torch.equal(out, sel_out):
+            raise AssertionError("[kairos] ea_selsparse_1b differs from ea_selective_1b")
+        ea_record("ea_selsparse_1b", S, narrow, rounds, ms,
+                  "bit-identical to ea_selective_1b (the numpy oracle's)",
+                  budget=budget, exchange_budget=sel_cell.meta["exchange_budget"])
+        del out, arr0
+
+        # -- ea_scan_1b / ea_sparse_1b: S cut to KAIROS_SCAN_SOURCES ------------
+        Sc = KAIROS_SCAN_SOURCES
+        scan_cell, sparse_cell = KAIROS_CELLS["ea_scan_1b"], KAIROS_CELLS["ea_sparse_1b"]
+        arr0 = arrivals0(sources[:Sc], ta)
+        out, rounds, ms = run_ea("ea_scan_1b", arr0, narrow, cell_plan(scan_cell),
+                                 sorted_edges=False)
+        if not torch.equal(out, sel_out[:Sc]):
+            raise AssertionError("[kairos] ea_scan_1b on the narrow window differs from "
+                                 "ea_selective_1b")
+        ea_record("ea_scan_1b", Sc, narrow, rounds, ms,
+                  "bit-identical to ea_selective_1b's rows (the numpy oracle's)",
+                  cut=f"sources {Sc} of 128")
+        del out, sel_out
+        pos = rng.integers(0, n_e, 4 * Sc)
+        wide = (int(np.quantile(ts[torch.as_tensor(pos, device=device)].cpu().numpy(),
+                                0.25)), t_hi)
+        wsrc = np.unique(src[torch.as_tensor(pos, device=device)].cpu().numpy())[:Sc]
+        arr0 = arrivals0(wsrc, wide[0])
+        verts = sampled_vertices(torch, np, rng, edges, n_v)
+        results = {}
+        for cell in (scan_cell, sparse_cell):
+            out, rounds, ms = run_ea(cell.name, arr0, wide, cell_plan(cell),
+                                     sorted_edges=False)
+            results[cell.name] = out
+            if cell is scan_cell:
+                misses = ea_fixpoint_misses(torch, np, out, arr0, edges, wide, verts)
+                if misses:
+                    raise AssertionError(f"[kairos] ea_scan_1b wide: {misses} sampled "
+                                         f"(source, vertex) pairs off the EA equation")
+                oracle = (f"the EA equation holds at {len(verts)} sampled vertices x {Sc} "
+                          f"sources (numpy on their in-edges); "
+                          f"{int((out < INF).sum())} reached")
+            else:
+                if not torch.equal(out, results["ea_scan_1b"]):
+                    raise AssertionError("[kairos] ea_sparse_1b differs from ea_scan_1b")
+                oracle = "bit-identical to ea_scan_1b"
+            ea_record(cell.name, Sc, wide, rounds, ms, oracle, cut=f"sources {Sc} of 128",
+                      exchange_budget=cell.meta.get("exchange_budget", 0))
+        del results, out, arr0
+
+        # -- cc_1b and pagerank_1b: rounds over every edge ----------------------
+        full = (t_lo, t_hi)
+        cc_round = ge.make_cc_round(mesh, n_v)
+        labels = torch.arange(n_v, dtype=torch.int32, device=device)
+        ms = []
+        for rnd in range(KAIROS_CC_MAX_ROUNDS):
+            sync()
+            t0 = time.perf_counter()
+            new = cc_round(labels, *edges[:4], valid, full)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if rnd == 0:
+                misses = cc_round_misses(torch, np, labels, new, edges, full, verts)
+                if misses:
+                    raise AssertionError(f"[kairos] cc_1b round 1: {misses} sampled "
+                                         f"vertices off the numpy round")
+            if torch.equal(new, labels):
+                break
+            labels = new
+        else:
+            raise AssertionError(f"[kairos] cc_1b: no fixpoint in {KAIROS_CC_MAX_ROUNDS} rounds")
+        bad_edges = sum(int(((labels[src[sl].long()] != labels[dst[sl].long()])
+                             & valid[sl]).sum()) for sl in _slices(n_e))
+        ids = torch.arange(n_v, dtype=torch.int32, device=device)
+        if bad_edges or bool((labels > ids).any()) or not torch.equal(
+                labels[labels.long()], labels):
+            raise AssertionError(f"[kairos] cc_1b labels: {bad_edges} edges join two "
+                                 f"labels, or a label is not its class's root")
+        n_comp = int((labels == ids).sum())
+        prof = kairos_profile(torch, device, "[kairos] cc_1b round",
+                              lambda: cc_round(labels, *edges[:4], valid, full))
+        records.append(dict(graph="kairos_1b", cell="cc_1b", rounds=len(ms),
+                            ms_per_round=float(np.median(ms)), ms_rounds=ms, **prof,
+                            ms_per_query=float(np.sum(ms)), components=n_comp,
+                            oracle="round 1 equals numpy at the sampled vertices; the "
+                                   "fixpoint's labels agree along every edge, each label "
+                                   "is its class's least id and a root"))
+        log(f"[kairos] cc_1b: {len(ms)} rounds to the fixpoint, {np.median(ms):.1f} ms a "
+            f"round (median), {np.sum(ms):.1f} ms in all; {n_comp} components; round 1 "
+            f"equal to numpy at {len(verts)} sampled vertices, the labels agree on every "
+            f"edge")
+        del labels, new, ids
+        deg = torch.zeros(n_v, dtype=torch.int64, device=device)
+        for sl in _slices(n_e):
+            deg += torch.bincount(src[sl].long(), minlength=n_v)
+        inv = torch.where(deg > 0, 1.0 / deg.clamp(min=1).float(),
+                          torch.zeros((), device=device))
+        del deg
+        pr_round = ge.make_pagerank_round(mesh, n_v)
+        pr = torch.full((n_v,), 1.0 / n_v, dtype=torch.float32, device=device)
+        ms, worst = [], 0.0
+        for rnd in range(KAIROS_PR_ROUNDS):
+            sync()
+            t0 = time.perf_counter()
+            new = pr_round(pr, *edges[:4], valid, inv, full)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if rnd in (0, KAIROS_PR_ROUNDS - 1):
+                worst = max(worst, pr_round_err(torch, np, pr, new, inv, edges, full, verts))
+            pr = new
+        if not worst <= 1.0:
+            raise AssertionError(f"[kairos] pagerank_1b off the float64 oracle: "
+                                 f"{worst:.3g} x tolerance")
+        records.append(dict(graph="kairos_1b", cell="pagerank_1b", rounds=len(ms),
+                            ms_per_round=float(np.median(ms)), ms_rounds=ms,
+                            oracle_err_over_tol=worst,
+                            oracle="rounds 1 and last against float64 numpy at the "
+                                   "sampled vertices"))
+        log(f"[kairos] pagerank_1b: {len(ms)} rounds, {np.median(ms):.1f} ms a round "
+            f"(median); rounds 1 and {len(ms)} within {worst:.3g} of the float64 oracle's "
+            f"tolerance at {len(verts)} sampled vertices")
+        del pr, new, inv, edges, src, dst, ts, te, valid
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        smoke = get_arch("kairos").smoke(seed, device=device)
+        log(f"[kairos] KairosFamily.smoke on the {device}: {smoke}")
+        if not smoke["matches_single_device"]:
+            raise AssertionError(f"[kairos] smoke: {smoke}")
+    finally:
+        dist.destroy_process_group()
+    return records
+
+
+# ---------------------------------------------------------------------------
+# the GNN, NequIP and MIND models at their published widths
+# ---------------------------------------------------------------------------
+
+REDDIT_VERTICES = 232_965        # graphsage-reddit's minibatch_lg cell
+REDDIT_EDGES = 114_615_892
+GNN_SAGE_STEPS = 10
+GNN_SMALL_STEPS = 20             # gcn-cora full_graph_sm, gin-tu molecule
+GNN_STEP_TOL = dict(loss_rel=1e-5, grads_rel_l2=1e-4)   # one float32 step, card vs CPU
+NEQUIP_STEPS = 10
+# each molecule's atoms: a 4 x 4 x 2 grid of spacing 1.5 A, each atom
+# jittered by up to 0.3 A, so no pair is under 0.9 A (a bond is 0.74 A or
+# more); uniform draws in a box put some pairs at a tenth of an A, where the
+# Bessel basis's 1/d drives energies and forces up by orders of magnitude
+NEQUIP_SPACING = 1.5
+NEQUIP_JITTER = 0.3
+NEQUIP_E3_TOL = dict(energy=dict(rtol=1e-4, atol=1e-5),  # test_models.py's
+                     forces=dict(rtol=1e-3, atol=1e-4))
+MIND_SERVE_CALLS = 50
+MIND_TRAIN_ITEMS = 10_000_000    # train_batch: the table cut from 1e8 rows
+MIND_TRAIN_STEPS = 3
+MIND_TOP_K = 100
+
+
+def rel_l2(torch, got, want) -> float:
+    num = sum(float(((g.double().cpu() - w.double().cpu()) ** 2).sum())
+              for g, w in zip(got, want))
+    den = sum(float((w.double().cpu() ** 2).sum()) for w in want)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def reddit_shaped(np, rng):
+    """A graph of Reddit's shape (minibatch_lg): 232,965 vertices,
+    114,615,892 edges with lognormal out-degrees (each at least 1), the
+    edges listed by source, uniform destinations; 602 float32 features and
+    41 classes."""
+    n_v, n_e = REDDIT_VERTICES, REDDIT_EDGES
+    w = rng.lognormal(0.0, 1.0, n_v)
+    deg = np.floor(w / w.sum() * (n_e - n_v)).astype(np.int64) + 1
+    deg[np.argsort(-w)[: n_e - int(deg.sum())]] += 1
+    src = np.repeat(np.arange(n_v, dtype=np.int64), deg)
+    dst = rng.integers(0, n_v, n_e)
+    feats = rng.standard_normal((n_v, 602), dtype=np.float32)
+    labels = rng.integers(0, 41, n_v)
+    return src, dst, feats, labels
+
+
+def gnn_step_profile(torch, np, label, step_fn):
+    """One profiled step: the idle share and index_add's (and the gathers'
+    backward) share of the device time."""
+    prof = profile_query(torch, label, step_fn, top=10)
+    busy = max(prof["busy_us"], 1e-9)
+    share = lambda keys: sum(v for k, v in prof["by_kernel"].items()
+                             if any(s in k for s in keys)) / busy
+    return dict(wall_us=prof["wall_us"], busy_us=prof["busy_us"],
+                idle_share=1 - prof["busy_us"] / prof["wall_us"],
+                index_add_share=share(("indexFuncLargeIndex", "indexFuncSmallIndex",
+                                       "index_add")),
+                gather_backward_share=share(("indexing_backward", "index_put")),
+                launches=sum(prof["count_by_kernel"].values()))
+
+
+def gnn_paths(torch, np, seed, device):
+    """graphsage-reddit at minibatch_lg (host sampling + AdamW steps, one
+    step profiled; one float32 step on the card against the CPU), gcn-cora
+    at full_graph_sm and gin-tu at molecule (AdamW steps)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.generators import molecule_batch_graph
+    from repro_torch.data.samplers import NeighborSampler, batch_to_device
+    from repro_torch.models import gnn as gnn_mod
+    from repro_torch.train.train_step import TrainConfig, init_train_state
+    from repro_torch.tree import tree_leaves, tree_map
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rng = np.random.default_rng(seed + 21)
+    records = []
+    fam = get_arch("graphsage-reddit")
+    cell = fam.cells["minibatch_lg"].meta
+    t0 = time.perf_counter()
+    src, dst, feats, labels = reddit_shaped(np, rng)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler.from_edges(src, dst, len(feats), fanouts=cell["fanout"])
+    t_csr = time.perf_counter() - t0
+    del src, dst
+    log(f"[gnn] Reddit-shaped graph: {len(feats)} vertices, {len(sampler.neighbors)} edges, "
+        f"{feats.shape[1]} features ({feats.nbytes} bytes) drawn in {t_gen:.2f} s; the "
+        f"sampler's CSR in {t_csr:.2f} s")
+    cfg = fam.cfg_for("minibatch_lg")
+    optimizer, step = fam.train_objects("minibatch_lg")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 22)
+    params = gnn_mod.init_gnn(cfg, gen, device)
+    n_pad, e_pad = cell["sub_nodes"], cell["sub_edges"]
+
+    def sample():
+        seeds = rng.choice(len(feats), cell["batch_nodes"], replace=False)
+        return sampler.sample_padded(seeds, rng, n_pad, e_pad, feats, labels)
+
+    # one float32 step from the initial weights on the card against the CPU
+    # (TF32 off); a ReLU input within rounding of 0 can take the other side
+    # on the other device, and the gradient then moves by that unit's share:
+    # the flips of the first layer are counted
+    def loss_and_grads(b):
+        p = tree_map(lambda t: t.detach().to(b["x"].device).clone(), params)
+        leaves = tree_leaves(p)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        lp, x = p["layers"][0], b["x"]
+        with torch.no_grad():
+            agg = gnn_mod.aggregate(x, b["src"], b["dst"], x.shape[0], cfg.aggregator)
+            pre = x @ lp["w_self"] + agg @ lp["w_nbr"] + lp["b"]
+        loss = gnn_mod.gnn_loss(p, b, cfg)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves), (pre > 0).cpu()
+
+    first = sample()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = loss_and_grads(batch_to_device(first, device))
+        cpu = loss_and_grads(batch_to_device(first, "cpu"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    fig = dict(loss_rel=abs(card[0] - cpu[0]) / abs(cpu[0]),
+               grads_rel_l2=rel_l2(torch, card[1], cpu[1]),
+               relu_flips=int((card[2] != cpu[2]).sum()))
+    log(f"[gnn] one float32 step of graphsage-reddit from its initial weights on the "
+        f"{device} against the CPU: {fig} (tolerances {GNN_STEP_TOL})")
+    if any(not fig[k] <= tol for k, tol in GNN_STEP_TOL.items()):
+        raise AssertionError(f"[gnn] card step off the CPU's: {fig}")
+    del card, cpu
+
+    state = init_train_state(params, optimizer, TrainConfig())
+    host_ms, dev_ms, losses = [], [], []
+    for i in range(GNN_SAGE_STEPS):
+        t0 = time.perf_counter()
+        host = first if i == 0 else sample()
+        t1 = time.perf_counter()
+        batch = batch_to_device(host, device)
+        _, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        sync()
+        t2 = time.perf_counter()
+        host_ms.append((t1 - t0) * 1e3)
+        dev_ms.append((t2 - t1) * 1e3)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[gnn] graphsage-reddit losses not finite: {losses}")
+    prof = gnn_step_profile(torch, np, "[gnn] graphsage-reddit minibatch_lg step",
+                            lambda: step(params, state, batch)) if device == "cuda" else {}
+    log(f"[gnn] graphsage-reddit minibatch_lg, {GNN_SAGE_STEPS} AdamW steps of "
+        f"{cell['batch_nodes']} seeds (fanout {cell['fanout']}, padded to {n_pad} nodes / "
+        f"{e_pad} edges): host sampling {np.median(host_ms[1:]):.1f} ms, transfer + step "
+        f"{np.median(dev_ms):.1f} ms (medians); losses {[round(l, 4) for l in losses]}; "
+        f"profiled step {prof}")
+    records.append(dict(graph="reddit_shaped", arch="graphsage-reddit", cell="minibatch_lg",
+                        steps=GNN_SAGE_STEPS, host_sampling_ms=host_ms[1:], step_ms=dev_ms,
+                        host_sampling_ms_median=float(np.median(host_ms[1:])),
+                        step_ms_median=float(np.median(dev_ms)), losses=losses,
+                        csr_build_s=t_csr, card_vs_cpu=fig, **prof))
+    del params, state, batch, sampler, feats
+
+    for arch, cell_name in (("gcn-cora", "full_graph_sm"), ("gin-tu", "molecule")):
+        fam = get_arch(arch)
+        meta = fam.cells[cell_name].meta
+        cfg = fam.cfg_for(cell_name)
+        optimizer, step = fam.train_objects(cell_name)
+        gen.manual_seed(seed + 23)
+        params = gnn_mod.init_gnn(cfg, gen, device)
+        state = init_train_state(params, optimizer, TrainConfig())
+        if cell_name == "molecule":
+            s, d, gid = molecule_batch_graph(meta["n_nodes"], meta["n_edges"], meta["batch"],
+                                             seed=seed)
+            n = meta["n_nodes"] * meta["batch"]
+            host = dict(src=s, dst=d, graph_id=gid, labels=rng.integers(
+                0, meta["n_classes"], meta["batch"]))
+        else:
+            n = meta["n_nodes"]
+            host = dict(src=rng.integers(0, n, meta["n_edges"]),
+                        dst=rng.integers(0, n, meta["n_edges"]),
+                        labels=rng.integers(0, meta["n_classes"], n))
+        host["x"] = rng.standard_normal((n, meta["d_feat"])).astype(np.float32)
+        batch = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+        ms, losses = [], []
+        for _ in range(GNN_SMALL_STEPS):
+            t0 = time.perf_counter()
+            _, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError(f"[gnn] {arch} losses not finite and falling: {losses}")
+        log(f"[gnn] {arch} {cell_name}: {GNN_SMALL_STEPS} AdamW steps, {np.median(ms):.2f} ms "
+            f"a step (median), losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+        records.append(dict(graph=cell_name, arch=arch, cell=cell_name, steps=len(ms),
+                            step_ms=ms, step_ms_median=float(np.median(ms)),
+                            losses=losses))
+        del params, state, batch
+    return records
+
+
+def _rotation(torch, seed, device):
+    A = torch.randn((3, 3), generator=torch.Generator().manual_seed(seed),
+                    dtype=torch.float64)
+    Q, Rm = torch.linalg.qr(A)
+    Q = Q * torch.sign(torch.diag(Rm))
+    if torch.linalg.det(Q) < 0:
+        Q[:, 0] = -Q[:, 0]
+    return Q.float().to(device)
+
+
+def molecule_positions(np, rng, n_molecules, n_atoms):
+    """Atom positions [n_molecules * n_atoms, 3] (float32), each molecule a
+    jittered grid (NEQUIP_SPACING, NEQUIP_JITTER)."""
+    grid = np.stack(np.meshgrid(np.arange(4), np.arange(4), np.arange(4), indexing="ij"),
+                    -1).reshape(-1, 3)[:n_atoms] * NEQUIP_SPACING
+    return np.concatenate([
+        grid + rng.uniform(-NEQUIP_JITTER, NEQUIP_JITTER, (n_atoms, 3))
+        for _ in range(n_molecules)]).astype(np.float32)
+
+
+def nequip_path(torch, np, seed, device):
+    """nequip at the molecule cell (128 molecules x 30 atoms, the published
+    5 layers, 32 channels, l_max 2): energies invariant and forces
+    equivariant under a seeded rotation at the initial weights (each
+    molecule's cutoff graph, TF32 off; ``test_models.py``'s tolerance),
+    then energy-MSE AdamW steps on the cell's random molecule edges."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.generators import molecule_batch_graph
+    from repro_torch.models import nequip as nq
+    from repro_torch.train.train_step import TrainConfig, init_train_state
+
+    rng = np.random.default_rng(seed + 31)
+    fam = get_arch("nequip")
+    cfg = fam.cfg
+    meta = fam.cells["molecule"].meta
+    G, A = meta["batch"], meta["n_nodes"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 32)
+    params = nq.init_nequip(cfg, gen, device)
+    pos = molecule_positions(np, rng, G, A)
+    species = torch.as_tensor(rng.integers(0, cfg.n_species, G * A), device=device)
+    gid = np.repeat(np.arange(G), A)
+
+    # E(3): per-molecule cutoff graphs, no self edges
+    ss, dd = [], []
+    for g in range(G):
+        p = pos[g * A:(g + 1) * A]
+        dm = np.linalg.norm(p[:, None] - p[None], axis=-1)
+        a, b = np.nonzero((dm < cfg.cutoff) & (dm > 0))
+        ss.append(a + g * A)
+        dd.append(b + g * A)
+    eq = dict(species=species, pos=torch.as_tensor(pos, device=device),
+              graph_id=torch.as_tensor(gid, device=device),
+              src=torch.as_tensor(np.concatenate(ss), device=device),
+              dst=torch.as_tensor(np.concatenate(dd), device=device), n_graphs=G)
+    Q = _rotation(torch, seed + 10, device)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            e1 = nq.nequip_forward(params, eq, cfg)
+            e2 = nq.nequip_forward(params, {**eq, "pos": eq["pos"] @ Q.T}, cfg)
+        _, f1 = nq.nequip_energy_forces(params, eq, cfg)
+        _, f2 = nq.nequip_energy_forces(params, {**eq, "pos": eq["pos"] @ Q.T}, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    e1, e2 = e1.cpu().numpy(), e2.cpu().numpy()
+    f1r, f2 = (f1 @ Q.T).cpu().numpy(), f2.cpu().numpy()
+    np.testing.assert_allclose(e2, e1, **NEQUIP_E3_TOL["energy"])
+    np.testing.assert_allclose(f2, f1r, **NEQUIP_E3_TOL["forces"])
+    over = lambda got, want, tol: float(
+        (np.abs(got - want) / (tol["atol"] + tol["rtol"] * np.abs(want))).max())
+    fig = dict(energy_max_abs=float(np.abs(e2 - e1).max()),
+               forces_max_abs=float(np.abs(f2 - f1r).max()),
+               energy_err_over_tol=over(e2, e1, NEQUIP_E3_TOL["energy"]),
+               forces_err_over_tol=over(f2, f1r, NEQUIP_E3_TOL["forces"]),
+               edges=int(eq["src"].shape[0]))
+    log(f"[nequip] {G} molecules rotated on the {device}: energies invariant and forces "
+        f"equivariant within {NEQUIP_E3_TOL}: {fig}")
+
+    optimizer, step = fam.train_objects("molecule")
+    state = init_train_state(params, optimizer, TrainConfig())
+    s, d, gid_cell = molecule_batch_graph(A, meta["n_edges"], G, seed=seed)
+    batch = dict(species=species, pos=eq["pos"],
+                 src=torch.as_tensor(s, device=device), dst=torch.as_tensor(d, device=device),
+                 graph_id=torch.as_tensor(gid_cell, device=device),
+                 energy_target=torch.as_tensor(rng.standard_normal(G).astype(np.float32),
+                                               device=device))
+    ms, losses = [], []
+    for _ in range(NEQUIP_STEPS):
+        t0 = time.perf_counter()
+        _, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"[nequip] losses not finite and falling: {losses}")
+    log(f"[nequip] molecule cell ({G} x {A} atoms, {len(s)} edges, {cfg.n_layers} layers, "
+        f"{cfg.d_hidden} channels, l_max {cfg.l_max}): {NEQUIP_STEPS} energy-MSE AdamW "
+        f"steps, {np.median(ms):.1f} ms a step (median), losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    return [dict(graph="molecule", arch="nequip", cell="molecule", steps=len(ms),
+                 step_ms=ms, step_ms_median=float(np.median(ms)), losses=losses, e3=fig)]
+
+
+def mind_path(torch, np, seed, device):
+    """mind at its published 1e8 x 64 float32 item table: serve_p99 (B 512)
+    timed over MIND_SERVE_CALLS calls, retrieval_cand (1e6 candidates, top
+    100: the ids equal a stable sort of the same scores on the CPU); then
+    train_batch (65,536 users) on a table cut to MIND_TRAIN_ITEMS rows."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import mind as mm
+    from repro_torch.train.train_step import TrainConfig, init_train_state
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rng = np.random.default_rng(seed + 41)
+    fam = get_arch("mind")
+    cfg = fam.cfg
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 42)
+    t0 = time.perf_counter()
+    params = mm.init_mind(cfg, gen, device)
+    sync()
+    log(f"[mind] item table {cfg.n_items} x {cfg.embed_dim} float32 "
+        f"({cfg.n_items * cfg.embed_dim * 4} bytes) drawn in {time.perf_counter() - t0:.2f} s")
+
+    def histories(B, n_items=cfg.n_items):
+        h = rng.integers(1, n_items, (B, cfg.hist_len))
+        h[np.arange(B) % 4 == 0, cfg.hist_len // 2:] = 0     # some short histories
+        return torch.as_tensor(h, device=device)
+
+    B = fam.cells["serve_p99"].meta["batch"]
+    batch = {"hist": histories(B)}
+    lat = []
+    with torch.no_grad():
+        for _ in range(MIND_SERVE_CALLS):
+            sync()
+            t0 = time.perf_counter()
+            out = mm.serve_step(params, batch, cfg)
+            sync()
+            lat.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(out).all()) or tuple(out.shape) != (B, cfg.n_interests,
+                                                                   cfg.embed_dim):
+        raise AssertionError(f"[mind] serve_p99: interests {tuple(out.shape)} not finite")
+    rec_serve = dict(graph="recsys", arch="mind", cell="serve_p99", batch=B,
+                     ms_median=float(np.median(lat)), ms_p99=float(np.quantile(lat, 0.99)),
+                     calls=len(lat))
+    log(f"[mind] serve_p99 (B {B}): {np.median(lat):.3f} ms median, "
+        f"{np.quantile(lat, 0.99):.3f} ms p99 over {len(lat)} calls")
+
+    meta = fam.cells["retrieval_cand"].meta
+    cands = torch.as_tensor(rng.integers(1, cfg.n_items, meta["n_candidates"]), device=device)
+    rb = {"hist": histories(meta["batch"]), "candidates": cands}
+    with torch.no_grad():
+        mm.retrieval_step(params, rb, cfg, top_k=MIND_TOP_K)   # warm
+        sync()
+        t0 = time.perf_counter()
+        vals, ids = mm.retrieval_step(params, rb, cfg, top_k=MIND_TOP_K)
+        sync()
+        r_ms = (time.perf_counter() - t0) * 1e3
+        scores = mm.score_candidates(params, mm.user_tower(params, rb["hist"], cfg),
+                                     rb["candidates"]).cpu()
+    want_v, want_i = torch.sort(scores, dim=-1, descending=True, stable=True)
+    if not torch.equal(ids.cpu(), want_i[:, :MIND_TOP_K]) or not torch.equal(
+            vals.cpu(), want_v[:, :MIND_TOP_K]):
+        raise AssertionError("[mind] retrieval ids differ from a stable sort of the "
+                             "scores on the CPU")
+    ties = int((want_v[0, 1:MIND_TOP_K] == want_v[0, :MIND_TOP_K - 1]).sum())
+    log(f"[mind] retrieval_cand ({meta['n_candidates']} candidates, top {MIND_TOP_K}): "
+        f"{r_ms:.2f} ms warm; ids equal the CPU's stable sort ({ties} tied neighbours in "
+        f"the top)")
+    rec_ret = dict(graph="recsys", arch="mind", cell="retrieval_cand",
+                   candidates=meta["n_candidates"], ms=r_ms, tied_neighbours=ties)
+    del params, out, rb, scores, cands
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(cfg, n_items=MIND_TRAIN_ITEMS)
+    gen.manual_seed(seed + 43)
+    params = mm.init_mind(tcfg, gen, device)
+    optimizer, step = fam.train_objects(tcfg)
+    state = init_train_state(params, optimizer, TrainConfig())
+    B = fam.cells["train_batch"].meta["batch"]
+    ms, losses = [], []
+    for _ in range(MIND_TRAIN_STEPS):
+        tb = {"hist": histories(B, tcfg.n_items),
+              "target": torch.as_tensor(rng.integers(1, tcfg.n_items, B), device=device),
+              "negatives": torch.as_tensor(rng.integers(1, tcfg.n_items,
+                                                        (B, tcfg.n_negatives)),
+                                           device=device)}
+        sync()
+        t0 = time.perf_counter()
+        _, state, m = step(params, state, tb)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[mind] train_batch losses not finite: {losses}")
+    log(f"[mind] train_batch (B {B}, {tcfg.n_negatives} negatives, table cut to "
+        f"{tcfg.n_items} rows): {MIND_TRAIN_STEPS} AdamW steps, {ms} ms, losses {losses}")
+    rec_train = dict(graph="recsys", arch="mind", cell="train_batch", batch=B,
+                     step_ms=ms, losses=losses, cut=f"item table {tcfg.n_items} rows of "
+                     f"{cfg.n_items}")
+    del params, state, tb
+    return [rec_serve, rec_ret, rec_train]
+
+
+@contextlib.contextmanager
+def phase_clock(torch, name):
+    """Logs a phase's wall time and its peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    log(f"phase {name}: {time.perf_counter() - t0:.2f} s wall, peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+
+
 def profile_query(torch, label, fn, top: int = 8, warm: bool = True) -> dict:
     """One query under torch.profiler (after one unprofiled call when
     ``warm``): device busy time against the host wall clock, and the
@@ -3517,24 +4405,27 @@ def main(argv=None) -> int:
     # -- the main path, counted ----------------------------------------------
     reset_launch_counts()
     records, failures = [], []
-    for name, g in graphs.items():
-        tger, fields, windows, sources = contexts[name]
-        records += main_path(torch, np, name, g, tger, fields, windows, sources)
-        records += pagerank_path(torch, np, name, g, tger, fields, windows, failures)
-        records += analytics_path(torch, np, name, g, tger, fields, windows["narrow"],
-                                  sources)
-        records += paths_path(torch, np, name, g, tger, fields, windows, sources)
-    # multi-tenant serving and the ring streams (counted too)
-    records += serving_path(torch, np, "power_law", graphs["power_law"],
-                            contexts["power_law"][0], contexts["power_law"][1], failures)
-    for name, access in (("transit", "index"), ("power_law", "hybrid")):
-        tger, fields, _, _ = contexts[name]
-        records += ring_stream(torch, np, name, graphs[name], tger, fields, access)
+    with phase_clock(torch, "graph paths"):
+        for name, g in graphs.items():
+            tger, fields, windows, sources = contexts[name]
+            records += main_path(torch, np, name, g, tger, fields, windows, sources)
+            records += pagerank_path(torch, np, name, g, tger, fields, windows, failures)
+            records += analytics_path(torch, np, name, g, tger, fields, windows["narrow"],
+                                      sources)
+            records += paths_path(torch, np, name, g, tger, fields, windows, sources)
+        # multi-tenant serving and the ring streams (counted too)
+        records += serving_path(torch, np, "power_law", graphs["power_law"],
+                                contexts["power_law"][0], contexts["power_law"][1],
+                                failures)
+        for name, access in (("transit", "index"), ("power_law", "hybrid")):
+            tger, fields, _, _ = contexts[name]
+            records += ring_stream(torch, np, name, graphs[name], tger, fields, access)
     counts = launch_counts()
     log(f"graph paths launches: {counts}")
     # -- the frontier ladder, counted on its own ------------------------------
     reset_launch_counts()
-    ladder_records, laddered_k1 = ladder_path(torch, np, graphs, contexts, failures, tem)
+    with phase_clock(torch, "ladder"):
+        ladder_records, laddered_k1 = ladder_path(torch, np, graphs, contexts, failures, tem)
     ladder_counts = launch_counts()
     log(f"ladder phase launches: {ladder_counts}")
     if ladder_counts["segment_min_tiles"] <= 0:
@@ -3542,7 +4433,8 @@ def main(argv=None) -> int:
     records += ladder_records
     # -- the cold store and the daemon, counted on their own -------------------
     reset_launch_counts()
-    records += history_daemon_path(torch, np, graphs, contexts, failures, args.seed)
+    with phase_clock(torch, "history/daemon"):
+        records += history_daemon_path(torch, np, graphs, contexts, failures, args.seed)
     history_counts = launch_counts()
     log(f"history/daemon phase launches: {history_counts}")
     for kernel in ("segment_min_tiles", "segment_spmm_tiles"):
@@ -3550,7 +4442,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"{kernel} was never launched in the daemon phase")
     # -- distributed serving and the edge-partitioned engine, counted ---------
     reset_launch_counts()
-    records += distributed_path(torch, np, graphs, contexts, failures, args.seed)
+    with phase_clock(torch, "distributed"):
+        records += distributed_path(torch, np, graphs, contexts, failures, args.seed)
     dist_counts = launch_counts()
     log(f"distributed phase launches: {dist_counts}")
     for kernel in ("segment_min_tiles", "segment_spmm_tiles"):
@@ -3573,21 +4466,44 @@ def main(argv=None) -> int:
         f"heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab}, {cfg.dtype}; {cfg.n_params} parameters; init from seed {args.seed} "
         f"in {time.perf_counter() - t0:.2f} s")
-    with torch.no_grad():
+    with torch.no_grad(), phase_clock(torch, "lm serving"):
         lm_records, lm_counts = lm_path(torch, np, model, args.seed)
     del model
     records += lm_records
     counts["decode_attention"] = lm_counts["decode_attention"]
     # -- MoE: moe_ffn, K4 at its decode shape, serving (counted), training ---
-    moe_records, moe_k4, moe_counts = moe_path(torch, np, args.seed, k4)
+    with phase_clock(torch, "moe"):
+        moe_records, moe_k4, moe_counts = moe_path(torch, np, args.seed, k4)
     records += moe_records
     rows[3]["moe_shape"] = moe_k4
     log(f"MoE serving phase launches: {moe_counts}")
     # -- LM training (no port kernel on its path; counted all the same) ------
     reset_launch_counts()
-    records += train_path(torch, np, args.seed)
+    with phase_clock(torch, "training"):
+        records += train_path(torch, np, args.seed)
     train_counts = launch_counts()
     log(f"training phase launches: {train_counts}")
+    # -- the paper's cells at 1e9 edges (no port kernel on the path) ----------
+    del graphs, contexts, layouts, g, plan
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    with phase_clock(torch, "kairos cells"):
+        records += kairos_path(torch, np, args.seed)
+    kairos_counts = launch_counts()
+    log(f"kairos phase launches: {kairos_counts}")
+    # -- GNN, NequIP and MIND at their published widths (no port kernel) ------
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    with phase_clock(torch, "models"):
+        records += gnn_paths(torch, np, args.seed, "cuda")
+        records += nequip_path(torch, np, args.seed, "cuda")
+        records += mind_path(torch, np, args.seed, "cuda")
+    model_counts = launch_counts()
+    log(f"models phase launches: {model_counts}")
+    for label, got in (("kairos", kairos_counts), ("models", model_counts)):
+        if any(got.values()):
+            raise AssertionError(f"a port kernel launched in the {label} phase, whose "
+                                 f"reference runs no Pallas kernel: {got}")
     # the kernels' instances on the main paths: registers, spills
     for row in rows[:2]:  # K1: its one-window and its windowed instance
         row["ptxas"] = {k: v for k, v in ptxas["temporal_edgemap"].items()
@@ -3602,6 +4518,8 @@ def main(argv=None) -> int:
         row["distributed_launches"] = dist_counts[row["name"]]
         row["moe_serving_launches"] = moe_counts[row["name"]]
         row["training_launches"] = train_counts[row["name"]]
+        row["kairos_launches"] = kairos_counts[row["name"]]
+        row["models_launches"] = model_counts[row["name"]]
         row["launches"] = (counts[row["name"]] + row["ladder_launches"]
                            + row["history_daemon_launches"]
                            + row["distributed_launches"] + row["moe_serving_launches"])

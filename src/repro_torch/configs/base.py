@@ -1,11 +1,12 @@
-"""Config substrate: shape cells and the architecture registry (the port of
-``repro/configs/base.py``; the families are in ``families.py``)."""
+"""Config substrate: shape cells, the interface of an architecture family
+and the architecture registry (the port of ``repro/configs/base.py``; the
+families are in ``families.py`` and ``kairos.py``)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
-_REGISTRY: Dict[str, Callable[[], Any]] = {}
+_REGISTRY: Dict[str, Callable[[], "ArchSpec"]] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,6 +19,29 @@ class Cell:
     skip: Optional[str] = None  # reason when the cell is defined-but-skipped
 
 
+class ArchSpec:
+    """Interface every architecture family implements (see families.py).
+
+    Not ported: ``lowerable``, which builds an XLA dry-run program with
+    shardings (a JAX mechanism: ``launch/dryrun.py`` compiles it for 512
+    forced host devices)."""
+
+    arch_id: str = ""
+    family: str = ""
+    source: str = ""
+    cells: Dict[str, Cell] = {}
+
+    def model_flops(self, cell_name: str) -> float:
+        """The model FLOPs of one step of the cell."""
+        raise NotImplementedError
+
+    def smoke(self, seed: int = 0, device=None) -> Dict[str, Any]:
+        """Run one reduced-config forward/train step on ``device`` (the
+        first CUDA card unless given); returns metrics, among them finite
+        outputs (asserted by the tests)."""
+        raise NotImplementedError
+
+
 def register(arch_id: str):
     def deco(fn):
         _REGISTRY[arch_id] = fn
@@ -26,7 +50,7 @@ def register(arch_id: str):
     return deco
 
 
-def get_arch(arch_id: str):
+def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()

@@ -11,4 +11,4 @@ from repro_torch.core.edgemap import (  # noqa: F401
     temporal_edge_map_batched,
     vertex_map,
 )
-from repro_torch.engine import AccessPlan, plan_query  # noqa: F401
+from repro_torch.engine import AccessPlan, decision_for, plan_query  # noqa: F401

@@ -41,10 +41,20 @@ def edge_follows(
     raise ValueError(pred)
 
 
+def interval_pair_satisfies(pred: OrderingPredicateType, a_start, a_end, b_start, b_end):
+    """OrderingPredicate(A, B, T) from Table 2: the explicit two-interval form."""
+    return edge_follows(pred, a_end, b_start, b_end, src_start=a_start)
+
+
 def in_window(t_start, t_end, window_start, window_end):
     """The edge's interval must lie within [window_start, window_end]
     (Alg. 2 lines 2-3: t_s >= t_a and t_e <= t_b)."""
     return (t_start >= window_start) & (t_end <= window_end)
 
 
-__all__ = ["OrderingPredicateType", "edge_follows", "in_window"]
+__all__ = [
+    "OrderingPredicateType",
+    "edge_follows",
+    "interval_pair_satisfies",
+    "in_window",
+]

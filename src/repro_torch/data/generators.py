@@ -2,7 +2,8 @@
 
 The edges are drawn in numpy exactly as the JAX package draws them, so the
 same seed gives the same edge list in both packages; only the finished
-graph goes to ``device``.
+graph goes to ``device``.  ``molecule_batch_graph`` returns numpy COO
+arrays, as the reference's does.
 """
 from __future__ import annotations
 
@@ -111,8 +112,26 @@ def transit_temporal_graph(
                       n_vertices=n_vertices, device=device)
 
 
+def molecule_batch_graph(n_nodes: int, n_edges: int, batch: int, seed: int = 0):
+    """Batched small graphs (GNN 'molecule' shape): COO edges over a
+    disjoint union of ``batch`` molecules plus the graph id of each node,
+    as numpy arrays (the reference's draws)."""
+    rng = np.random.default_rng(seed)
+    srcs, dsts = [], []
+    for b in range(batch):
+        s = rng.integers(0, n_nodes, size=n_edges)
+        d = rng.integers(0, n_nodes, size=n_edges)
+        srcs.append(s + b * n_nodes)
+        dsts.append(d + b * n_nodes)
+    src = np.concatenate(srcs)
+    dst = np.concatenate(dsts)
+    graph_id = np.repeat(np.arange(batch), n_nodes)
+    return src, dst, graph_id
+
+
 __all__ = [
     "synthetic_temporal_graph",
     "power_law_temporal_graph",
     "transit_temporal_graph",
+    "molecule_batch_graph",
 ]

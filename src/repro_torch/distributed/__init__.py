@@ -20,4 +20,11 @@ from repro_torch.distributed.query_shard import (  # noqa: F401
     row_partition,
     serve_mesh,
 )
-from repro_torch.distributed.sharding import DEFAULT_RULES  # noqa: F401
+from repro_torch.distributed.sharding import (  # noqa: F401
+    DEFAULT_RULES,
+    AxisRules,
+    constrain,
+    current_mesh,
+    logical_spec,
+    use_mesh,
+)

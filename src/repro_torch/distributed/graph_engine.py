@@ -29,15 +29,20 @@ and this rank's edge chunk (:func:`shard_edges`); at world size 1 those are
 the whole arrays.  The combines here are ``scatter_reduce_`` / ``index_add_``
 plus a collective, as the reference's are ``segment_*`` plus ``pmin`` /
 ``psum``: no tile kernel runs on this path.
+
+A round reduces its candidates ``EDGE_CHUNK`` at a time (edges x source
+rows), min- or float64-sum-combining the chunks' partials: at the paper's
+1e9 edges the int64 segment ids and masks of one pass over all candidates
+would not fit beside the edges on one card.  Min is exact and the float
+sums round once, after the last chunk, so the result does not depend on
+the chunk size.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
-from repro_torch.device import to_numpy
 from repro_torch.distributed.collectives import (
     MeshAxis,
     all_gather,
@@ -52,6 +57,13 @@ from repro_torch.kernels.temporal_edgemap import INT_INF
 
 EDGE_AXES = ("pod", "data")
 SOURCE_AXIS = "model"
+EDGE_CHUNK = 1 << 27   # candidates (edges x source rows) reduced per pass
+
+
+def _chunks(n: int, per: int):
+    """Slices of ``range(n)`` of ``per`` elements (the last shorter)."""
+    per = max(int(per), 1)
+    return [slice(lo, min(lo + per, n)) for lo in range(0, n, per)] or [slice(0, 0)]
 
 
 def _edge_axes(mesh) -> Tuple[str, ...]:
@@ -143,15 +155,19 @@ def _gather_shard_candidates(src, dst, ts, te, evalid, ta, tb, budget: int):
 
 def _relax_partial(arrival, s, d, t1, t2, ok_base, n_vertices: int, strict: bool):
     """Shard-local EA relax: per source row, the segment min of candidate
-    arrivals into destinations ([S_loc, V], INT_INF where none)."""
-    arr_src = arrival[:, s.long()]                         # [S_loc, K]
-    follows = (arr_src < t1) if strict else (arr_src <= t1)
-    ok = ok_base[None, :] & follows & (arr_src < INT_INF)
+    arrivals into destinations ([S_loc, V], INT_INF where none), over
+    ``EDGE_CHUNK`` candidates a pass."""
     rows = arrival.shape[0]
-    ids = (torch.arange(rows, device=arrival.device)[:, None] * n_vertices
-           + d.long()[None, :]).reshape(-1)
-    cand = t2[None, :].expand(rows, -1).reshape(-1)
-    out = segment_combine(cand, ids, rows * n_vertices, "min", mask=ok.reshape(-1))
+    row_off = torch.arange(rows, device=arrival.device)[:, None] * n_vertices
+    out = None
+    for sl in _chunks(s.shape[0], EDGE_CHUNK // max(rows, 1)):
+        arr_src = arrival[:, s[sl].long()]                 # [S_loc, K]
+        follows = (arr_src < t1[sl]) if strict else (arr_src <= t1[sl])
+        ok = ok_base[None, sl] & follows & (arr_src < INT_INF)
+        ids = (row_off + d[sl].long()[None, :]).reshape(-1)
+        cand = t2[None, sl].expand(rows, -1).reshape(-1)
+        part = segment_combine(cand, ids, rows * n_vertices, "min", mask=ok.reshape(-1))
+        out = part if out is None else torch.minimum(out, part, out=out)
     return out.reshape(rows, n_vertices)
 
 
@@ -167,14 +183,18 @@ def _exchange_topk(arrival, partial, axis, n_vertices: int, k: int):
     improvements (vertex id, arrival) per source row and applies the union
     with a local scatter-min.  The K are picked by a STABLE sort of the
     keyed values, so among equal arrivals the lower vertex id goes first,
-    as ``jax.lax.top_k`` orders them.  With fewer than K improvements the
-    rest are INT_INF entries, which scatter harmlessly."""
-    keyed = torch.where(partial < arrival, partial, INT_INF)
-    vals, idx = torch.sort(keyed, dim=1, stable=True)
-    vals, idx = vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+    as ``jax.lax.top_k`` orders them; the rows are sorted ``EDGE_CHUNK``
+    entries at a time.  With fewer than K improvements the rest are INT_INF
+    entries, which scatter harmlessly."""
+    rows = arrival.shape[0]
+    vals = torch.empty((rows, k), dtype=arrival.dtype, device=arrival.device)
+    idx = torch.empty((rows, k), dtype=torch.int32, device=arrival.device)
+    for sl in _chunks(rows, EDGE_CHUNK // max(n_vertices, 1)):
+        keyed = torch.where(partial[sl] < arrival[sl], partial[sl], INT_INF)
+        v, i = torch.sort(keyed, dim=1, stable=True)
+        vals[sl], idx[sl] = v[:, :k], i[:, :k]
     if axis is not None:
         vals, idx = all_gather(vals[None], axis), all_gather(idx[None], axis)
-    rows = arrival.shape[0]
     ids = (torch.arange(rows, device=arrival.device)[None, :, None] * n_vertices
            + idx.long().reshape(-1, rows, k))
     upd = segment_combine(vals.reshape(-1), ids.reshape(-1), rows * n_vertices, "min")
@@ -214,35 +234,51 @@ def make_ea_round_plan(mesh, n_vertices: int, plan: Optional[AccessPlan] = None,
 
 
 def sort_edges_by_time_per_shard(mesh, src, dst, ts, te):
-    """Host side: pad the edges to the shard multiple and sort each shard's
-    slice by t_start (stable), so the selective round's local binary search
-    is valid.  Returns this rank's ``(src, dst, ts, te, valid)`` chunks."""
+    """Pad the edges to the shard multiple and sort each shard's slice by
+    t_start (stable), so the selective round's local binary search is
+    valid.  Returns this rank's ``(src, dst, ts, te, valid)`` chunks on its
+    device, sorted there (arrays or tensors in; tensors already on the
+    device are not copied to the host)."""
     n, i = _n_shards(mesh)
-    e = int(np.asarray(to_numpy(src)).shape[0])
+    dev = mesh_device(mesh)
+    e = int(src.shape[0])
     pad = (-e) % n
-    arrs = [np.pad(to_numpy(a), (0, pad), constant_values=0) for a in (src, dst, ts, te)]
-    valid = np.pad(np.ones(e, bool), (0, pad), constant_values=False)
     per = (e + pad) // n
     sl = slice(i * per, (i + 1) * per)
-    order = np.argsort(arrs[2][sl], kind="stable")
-    dev = mesh_device(mesh)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a[sl][order])).to(dev)
-                 for a in arrs + [valid])
+
+    def mine(a, fill=0):
+        a = torch.as_tensor(a, device=dev)
+        if pad:
+            a = torch.cat([a, a.new_full((pad,), fill)])
+        return a[sl]
+
+    ts_sorted, order = torch.sort(mine(ts), stable=True)
+    out = [mine(a)[order] for a in (src, dst)] + [ts_sorted.contiguous(), mine(te)[order]]
+    valid = torch.ones(e, dtype=torch.bool, device=dev)
+    out.append(mine(valid, False)[order])
+    return tuple(a.contiguous() for a in out)
 
 
 def make_pagerank_round(mesh, n_vertices: int, damping: float = 0.85):
     """One distributed temporal-PageRank power iteration (sum combine):
     ``pr_round(pr, src, dst, ts, te, evalid, inv_out_deg, window)`` with
-    ``pr`` and ``inv_out_deg`` the whole [V] vectors on every rank."""
+    ``pr`` and ``inv_out_deg`` the whole [V] vectors on every rank.  The
+    float32 contributions add in float64 (across chunks and ranks too) and
+    round once."""
     axis = edge_mesh_axis(mesh)
 
     def pr_round(pr, src, dst, ts, te, evalid, inv_out_deg, window):
         ta, tb = int(window[0]), int(window[1])
-        ok = evalid & (ts >= ta) & (te <= tb)
-        s = src.long()
-        contrib = pr[s] * inv_out_deg[s]
-        agg = segment_combine(contrib, dst, n_vertices, "sum", mask=ok, axis=axis)
-        return (1.0 - damping) / n_vertices + damping * agg
+        agg = None
+        for sl in _chunks(src.shape[0], EDGE_CHUNK):
+            ok = evalid[sl] & (ts[sl] >= ta) & (te[sl] <= tb)
+            s = src[sl].long()
+            contrib = (pr[s] * inv_out_deg[s]).double()
+            part = segment_combine(contrib, dst[sl], n_vertices, "sum", mask=ok)
+            agg = part if agg is None else agg.add_(part)
+        if axis is not None:
+            all_reduce(agg, "sum", axis)
+        return (1.0 - damping) / n_vertices + damping * agg.to(pr.dtype)
 
     return pr_round
 
@@ -255,11 +291,15 @@ def make_cc_round(mesh, n_vertices: int):
 
     def cc_round(labels, src, dst, ts, te, evalid, window):
         ta, tb = int(window[0]), int(window[1])
-        ok = evalid & (ts >= ta) & (te <= tb)
-        s, d = src.long(), dst.long()
-        fwd = segment_combine(labels[s], d, n_vertices, "min", mask=ok)
-        bwd = segment_combine(labels[d], s, n_vertices, "min", mask=ok)
-        partial = torch.minimum(fwd, bwd)
+        partial = None
+        for sl in _chunks(src.shape[0], EDGE_CHUNK):
+            ok = evalid[sl] & (ts[sl] >= ta) & (te[sl] <= tb)
+            s, d = src[sl].long(), dst[sl].long()
+            fwd = segment_combine(labels[s], d, n_vertices, "min", mask=ok)
+            part = torch.minimum(fwd, segment_combine(labels[d], s, n_vertices, "min",
+                                                      mask=ok))
+            partial = part if partial is None else torch.minimum(partial, part,
+                                                                 out=partial)
         if axis is not None:
             all_reduce(partial, "min", axis)
         new = torch.minimum(labels, partial)
@@ -314,6 +354,7 @@ def run_distributed_ea(
 
 __all__ = [
     "EDGE_AXES",
+    "EDGE_CHUNK",
     "edge_mesh_axis",
     "source_mesh_axis",
     "local_rows",

@@ -1,6 +1,7 @@
 """How a plan's combines execute.
 
-Two backends, named as in the JAX package:
+Two backends behind one ``ExecutionBackend`` protocol (``get_backend``),
+named as in the JAX package:
 
   * ``xla_segment`` — masked ``scatter_reduce_`` (amin / amax / sum) into an
     identity-filled buffer;
@@ -24,7 +25,7 @@ replicated.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Protocol
 
 import torch
 
@@ -147,6 +148,39 @@ def segment_combine_windows(values, segment_ids, num_segments: int,
     return out.reshape((W, num_segments) + tuple(values.shape[2:]))
 
 
+class ExecutionBackend(Protocol):
+    """Backend protocol: execute a (masked) segment combine, single-window
+    or batched over a window axis sharing one edge set."""
+
+    name: str
+
+    def combine(self, plan: Optional[AccessPlan], values, segment_ids,
+                num_segments: int, op: str, mask=None):
+        ...
+
+    def combine_windows(self, plan: Optional[AccessPlan], values, segment_ids,
+                        num_segments: int, op: str, masks=None):
+        ...
+
+
+class XlaSegmentBackend:
+    """The masked segment-reduce path (``scatter_reduce_``); the name is the
+    JAX package's, so a plan's backend string finds it."""
+
+    name = "xla_segment"
+
+    def combine(self, plan, values, segment_ids, num_segments, op, mask=None):
+        del plan
+        return segment_combine(values, segments_for(None, segment_ids).ids, num_segments,
+                               op, mask=mask)
+
+    def combine_windows(self, plan, values, segment_ids, num_segments, op,
+                        masks=None):
+        del plan
+        return segment_combine_windows(values, segments_for(None, segment_ids).ids,
+                                       num_segments, op, masks=masks)
+
+
 class PallasTiledBackend:
     """The destination-tile kernels, selected by the plan's layout (the
     name is the JAX package's, so plans and cache keys compare equal).
@@ -232,6 +266,14 @@ class PallasTiledBackend:
 
 
 _TILED = PallasTiledBackend()
+_BACKENDS = {"xla_segment": XlaSegmentBackend(), "pallas_tiled": _TILED}
+
+
+def get_backend(name: str) -> ExecutionBackend:
+    try:
+        return _BACKENDS[name]
+    except KeyError:
+        raise ValueError(f"unknown backend {name!r}; have {sorted(_BACKENDS)}") from None
 
 
 def combine_for_plan(
@@ -278,7 +320,10 @@ def combine_windows_for_plan(
 
 
 __all__ = [
+    "ExecutionBackend",
+    "XlaSegmentBackend",
     "PallasTiledBackend",
+    "get_backend",
     "Segments",
     "segments_for",
     "segment_combine",

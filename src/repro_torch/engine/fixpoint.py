@@ -21,7 +21,6 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.edgemap import _endpoints, ensure_plan, union_window, view_for_plan
 from repro_torch.core.predicates import in_window
 from repro_torch.engine.backends import (
     combine_for_plan,
@@ -71,6 +70,10 @@ class FixpointRunner:
         self.batched = windows is not None
         self.max_rounds = int(max_rounds) or self.n_vertices + 1
         self.device = edges.src.device
+        # core.edgemap imports the engine's backends: import it at call time,
+        # as the reference does, so ``repro_torch.engine`` can export the runner
+        from repro_torch.core.edgemap import _endpoints
+
         from_v, to_v = _endpoints(edges, direction)
         self.from_v = from_v.long()
         # the tiled kernels need the graph's native dst order
@@ -111,6 +114,8 @@ class FixpointRunner:
                   direction: str = "out",
                   max_rounds: int = 0) -> "FixpointRunner":
         """Single-window runner: one plan-directed view build per query."""
+        from repro_torch.core.edgemap import ensure_plan, view_for_plan
+
         plan = ensure_plan(plan)
         edges = view_for_plan(g, tger, window, plan)
         return cls(edges, window, plan=plan, n_vertices=g.n_vertices,
@@ -121,6 +126,8 @@ class FixpointRunner:
                     plan: Optional[AccessPlan] = None, direction: str = "out",
                     max_rounds: int = 0) -> "FixpointRunner":
         """Batched runner: one union-window view serves all Q rows."""
+        from repro_torch.core.edgemap import ensure_plan, union_window, view_for_plan
+
         plan = ensure_plan(plan)
         edges = view_for_plan(g, tger, union_window(windows), plan)
         return cls(edges, windows=windows, sources=sources, plan=plan,

@@ -100,7 +100,10 @@ def _route(params, x, cfg: MoEConfig):
     E, K = cfg.n_experts, cfg.top_k
     logits = (x @ params["router"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
-    top_w, top_ids = torch.topk(probs, K)
+    # a stable descending sort: among equal probabilities the lower expert
+    # id goes first, as ``jax.lax.top_k`` orders them (``torch.topk`` does not)
+    top_w, top_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_ids = top_w[:, :K], top_ids[:, :K]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=0)
     ce = torch.bincount(top_ids.reshape(-1), minlength=E).to(probs.dtype) / (T * K)

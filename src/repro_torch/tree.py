@@ -1,10 +1,13 @@
-"""Nested dicts of tensors, the port's stand-in for the reference's pytrees.
+"""Nested dicts and lists of tensors, the port's stand-in for the
+reference's pytrees.
 
 The model's parameters, the optimizer state and a checkpoint's tree are
-nested ``dict``s whose leaves are tensors (or, for the train step counter,
-a host int).  Leaves are visited in sorted key order, as ``jax.tree_util``
-flattens a dict, and a leaf's path is its keys joined by ``/``, as the
-reference's checkpoint keys are.
+nested ``dict``s (and, for the GNN and NequIP layers, ``list``s) whose
+leaves are tensors (or, for the train step counter, a host int).  Leaves
+are visited in sorted key order and in list order, as ``jax.tree_util``
+flattens a dict and a list, and a leaf's path is its keys (list positions)
+joined by ``/``, as the reference's checkpoint keys are.  A tuple is a
+leaf.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ def tree_map(fn: Callable, tree, *rest):
     whatever ``rest`` holds there (a leaf, or a whole subtree)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -25,6 +30,9 @@ def tree_items(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_items(tree[k], prefix + (str(k),))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, prefix + (str(i),))
     else:
         yield "/".join(prefix), tree
 
@@ -42,6 +50,8 @@ def tree_unflatten(tree, leaves):
         if isinstance(t, dict):
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}
+        if isinstance(t, list):
+            return [build(v) for v in t]
         return next(it)
 
     out = build(tree)

@@ -15,6 +15,7 @@ from repro_torch.data import generators as tgen
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
+from repro_torch.models.gnn import init_gnn
 from repro_torch.models.transformer import init_cache, init_lm, params_from_numpy
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -40,6 +41,14 @@ def test_port_imports_no_jax():
         "import repro_torch.train.checkpoint, repro_torch.train.elastic\n"
         "import repro_torch.distributed.compression, repro_torch.distributed.sharding\n"
         "import repro_torch.configs.families, repro_torch.launch.train\n"
+        "import repro_torch.configs.kairos, repro_torch.core.selective\n"
+        "import repro_torch.core.predicates, repro_torch.engine.backends\n"
+        "import repro_torch.models.gnn, repro_torch.models.nequip\n"
+        "import repro_torch.models.mind, repro_torch.models.params\n"
+        "import repro_torch.data.samplers, repro_torch.distributed\n"
+        "from repro_torch.engine import FixpointRunner, get_backend, XlaSegmentBackend\n"
+        "from repro_torch.configs import ASSIGNED, get_arch\n"
+        "assert all(get_arch(a) for a in ASSIGNED + ['kairos'])\n"
         "from repro_torch.kernels import launch_counts\n"
         "assert set(launch_counts()) == {'segment_min_tiles',\n"
         "    'temporal_relax_min_tiles', 'segment_spmm_tiles', 'decode_attention'}\n"
@@ -71,6 +80,12 @@ def test_port_imports_no_jax():
                                "--history-chunks", "64"]),
     lambda: launch_train.main(["--scale", "smoke", "--steps", "1"]),
     lambda: get_arch("qwen3-moe-30b-a3b").smoke(),
+    lambda: get_arch("kairos").smoke(),
+    lambda: get_arch("gcn-cora").smoke(),
+    lambda: get_arch("nequip").smoke(),
+    lambda: get_arch("mind").smoke(),
+    lambda: init_gnn(get_arch("gin-tu").smoke_cfg(), torch.Generator()),
+    lambda: params_from_numpy({}, get_arch("smollm-135m").smoke_cfg),
 ])
 def test_entry_points_need_a_card_or_an_explicit_device(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -99,3 +114,36 @@ def test_explicit_cpu_device_and_downstream_follows():
     assert resolve_device("cpu") == torch.device("cpu")
     f = repro_torch.frontier_from_sources(3, [1], device="cpu")
     assert f.device == torch.device("cpu") and f.tolist() == [False, True, False]
+
+
+# names of the JAX package's packages that are JAX mechanisms, left out of
+# the port on purpose (none today: every public name has a counterpart)
+JAX_ONLY = {"repro.core": set(), "repro.engine": set(), "repro.distributed": set()}
+
+
+def _public(module):
+    """``__all__`` where the package defines it, else its public names that
+    are not submodules."""
+    import types
+
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    return {n for n in dir(module) if not n.startswith("_")
+            and not isinstance(getattr(module, n), types.ModuleType)}
+
+
+@pytest.mark.parametrize("package", sorted(JAX_ONLY))
+def test_package_exports_cover_the_references(package):
+    """Every name ``repro.core``, ``repro.engine`` and ``repro.distributed``
+    export is exported by the port's package of the same name (less the
+    JAX-only names, by name); where both define ``__all__`` the lists are
+    equal."""
+    import importlib
+
+    importlib.import_module("repro.core")  # the JAX package imports core before engine
+    ref = importlib.import_module(package)
+    port = importlib.import_module(package.replace("repro", "repro_torch", 1))
+    missing = _public(ref) - _public(port) - JAX_ONLY[package]
+    assert not missing, sorted(missing)
+    if hasattr(ref, "__all__"):
+        assert sorted(port.__all__) == sorted(ref.__all__)

@@ -792,3 +792,165 @@ def _tree_copy(tree, device):
     from repro_torch.tree import tree_map
 
     return tree_map(lambda p: p.detach().to(device).clone(), tree)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("router", ["zero", "tied"])
+def test_moe_route_on_card_breaks_ties_as_cpu(cuda, router, dtype):
+    """MoE routing on the card picks the CPU's top-k ids on tied router
+    probabilities (E 4, K 2, T 8, d 4 and E 128, K 8, T 512, d 16): among
+    equal probabilities the lower expert id first, as ``jax.lax.top_k``
+    (``test_torch_moe.py::test_route_breaks_ties_as_jax`` holds the CPU to
+    JAX)."""
+    from repro_torch.models import moe as tmoe
+
+    for E, K, T, d in ((4, 2, 8, 4), (128, 8, 512, 16)):
+        cfg = tmoe.MoEConfig(n_experts=E, top_k=K, d_ff=8, capacity_factor=8.0)
+        rng = np.random.default_rng(E)
+        # small integers: the router logits are exact in bfloat16 and TF32
+        # on both devices, so only the tie-break can tell them apart
+        if router == "zero":
+            w = np.zeros((d, E), np.float32)
+        else:
+            half = rng.integers(-3, 4, (d, E // 2)).astype(np.float32)
+            w = np.concatenate([half, half], axis=1)
+        x = rng.integers(-2, 3, (T, d)).astype(np.float32)
+        ids = []
+        for dev in ("cpu", cuda):
+            params = {"router": torch.as_tensor(w, device=dev)}
+            _, _, tids, _ = tmoe._route(params, torch.as_tensor(x, device=dev).to(dtype), cfg)
+            ids.append(tids.cpu())
+        assert torch.equal(ids[0], ids[1])
+        if router == "zero":
+            assert (ids[1] == torch.arange(K)).all()
+
+
+def test_distributed_rounds_in_chunks_on_card_match_one_pass(nccl_rank, monkeypatch):
+    """The engine's rounds reduced 997 candidates a pass on the card (the
+    per-shard time sort on the card too) equal the one-pass rounds: EA in
+    the scan, index and top-K plans and CC bit for bit, PageRank within
+    rtol 1e-5 (both add in float64 and round once)."""
+    from repro_torch.distributed import graph_engine as ge
+    from repro_torch.distributed import make_mesh
+    from repro_torch.engine.plan import make_plan
+
+    g, _, win, _ = _small_graph(nccl_rank)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    V = g.n_vertices
+    arr0 = torch.full((4, V), tem.INT_INF, dtype=torch.int32, device=nccl_rank)
+    arr0[torch.arange(4), torch.tensor([0, 1, 2, 3])] = win[0]
+    srt = ge.sort_edges_by_time_per_shard(mesh, g.src, g.dst, g.t_start, g.t_end)
+    host = ge.sort_edges_by_time_per_shard(mesh, g.src.cpu().numpy(), g.dst.cpu().numpy(),
+                                           g.t_start.cpu().numpy(), g.t_end.cpu().numpy())
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(srt, host))
+    inv = torch.rand(V, generator=torch.Generator().manual_seed(0)).to(nccl_rank)
+
+    def results():
+        out = [ge.run_distributed_ea(mesh, arr0, srt[:4], srt[4], win, plan=plan,
+                                     max_rounds=200, edges_time_sorted=True)
+               for plan in (None, make_plan("index", budget=1 << 15),
+                            make_plan("scan", exchange_budget=64))]
+        labels = torch.arange(V, dtype=torch.int32, device=nccl_rank)
+        pr = torch.full((V,), 1.0 / V, device=nccl_rank)
+        for _ in range(4):
+            labels = ge.make_cc_round(mesh, V)(labels, *srt, win)
+            pr = ge.make_pagerank_round(mesh, V)(pr, *srt, inv, win)
+        return out, labels, pr
+
+    one = results()
+    monkeypatch.setattr(ge, "EDGE_CHUNK", 997)
+    chunked = results()
+    for a, b in zip(one[0], chunked[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(one[1], chunked[1])
+    torch.testing.assert_close(chunked[2], one[2], rtol=1e-5, atol=1e-7)
+
+
+def test_per_vertex_decisions_on_card_match_cpu(cuda):
+    from repro_torch.core.selective import per_vertex_decisions
+
+    runs = []
+    for dev in ("cpu", cuda):
+        g, idx, win, _ = _small_graph(dev)
+        runs.append(per_vertex_decisions(idx, g.out_degree, win))
+    assert runs[1][0].is_cuda
+    assert torch.equal(runs[0][0], runs[1][0].cpu())
+    assert torch.equal(runs[0][1], runs[1][1].cpu())
+
+
+def test_gnn_and_nequip_on_card_match_cpu(cuda):
+    """A GIN (sum readout) and a GraphSAGE step's loss and gradients, and
+    NequIP's energies and forces, on the card against the CPU from the same
+    weights, TF32 off: within rtol 1e-5 plus 1e-6 of the largest entry
+    (``index_add`` adds with atomics in no fixed order on the card)."""
+    from repro_torch.models import gnn as gm
+    from repro_torch.models import nequip as nq
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+
+    def close(a, b):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5,
+                                   atol=1e-6 * max(float(b.abs().max()), 1e-30))
+
+    for arch, readout in (("gin", "sum"), ("graphsage", None)):
+        cfg = gm.GNNConfig(name="t", arch=arch, n_layers=3, d_hidden=32, d_in=16,
+                           n_classes=5, aggregator="sum" if arch == "gin" else "mean",
+                           readout=readout)
+        params = gm.init_gnn(cfg, torch.Generator().manual_seed(1), "cpu")
+        N, E = 600, 4000
+        host = {"x": rng.standard_normal((N, 16)).astype(np.float32),
+                "src": rng.integers(0, N, E), "dst": rng.integers(0, N, E)}
+        if readout:
+            host.update(graph_id=np.repeat(np.arange(10), N // 10),
+                        labels=rng.integers(0, 5, 10))
+        else:
+            host["labels"] = rng.integers(0, 5, N)
+        runs = []
+        for dev in ("cpu", cuda):
+            p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+            if readout:
+                b["n_graphs"] = 10
+            loss = gm.gnn_loss(p, b, cfg)
+            runs.append((loss.detach(), torch.autograd.grad(loss, tree_leaves(p))))
+        close(runs[1][0], runs[0][0])
+        for a, b in zip(runs[1][1], runs[0][1]):
+            close(a, b)
+    cfg = nq.NequIPConfig(name="t", n_layers=3, d_hidden=16, l_max=2, n_species=6)
+    params = nq.init_nequip(cfg, torch.Generator().manual_seed(2), "cpu")
+    pos = rng.uniform(0, 6, (40, 3)).astype(np.float32)
+    d = np.linalg.norm(pos[:, None] - pos[None], axis=-1)
+    src, dst = np.nonzero((d < cfg.cutoff) & (d > 0.5))
+    host = dict(species=rng.integers(0, 6, 40), pos=pos, src=src, dst=dst)
+    runs = []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        runs.append(nq.nequip_energy_forces(
+            p, {k: torch.as_tensor(v, device=dev) for k, v in host.items()}, cfg))
+    close(runs[1][0], runs[0][0])
+    close(runs[1][1], runs[0][1])
+
+
+def test_mind_retrieval_on_card_breaks_ties_as_cpu(cuda):
+    """MIND retrieval on the card: the top-100 positions equal a stable sort
+    of the same scores on the CPU, with every candidate item listed four
+    times (four-way ties throughout)."""
+    from repro_torch.models import mind as mm
+
+    cfg = mm.MINDConfig(name="t", n_items=5000, hist_len=12)
+    params = mm.init_mind(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = np.random.default_rng(4)
+    cands = np.repeat(rng.integers(1, 5000, 2000), 4)
+    rng.shuffle(cands)
+    batch = {"hist": torch.as_tensor(rng.integers(1, 5000, (3, 12)), device=cuda),
+             "candidates": torch.as_tensor(cands, device=cuda)}
+    with torch.no_grad():
+        vals, ids = mm.retrieval_step(params, batch, cfg, top_k=100)
+        scores = mm.score_candidates(params, mm.user_tower(params, batch["hist"], cfg),
+                                     batch["candidates"]).cpu()
+    want_v, want_i = torch.sort(scores, dim=-1, descending=True, stable=True)
+    assert torch.equal(ids.cpu(), want_i[:, :100])
+    assert torch.equal(vals.cpu(), want_v[:, :100])
+    assert int((want_v[:, 1:100] == want_v[:, :99]).sum()) > 0

@@ -243,3 +243,28 @@ def test_pod_and_data_edge_dimensions_flatten_into_one(group):
     for plan in (None, t_make_plan("scan", exchange_budget=8)):
         out = tge.run_distributed_ea(mesh, arr0, edges, evalid, win, plan=plan)
         assert (as_np(out) == ref).all()
+
+
+@pytest.mark.parametrize("chunk", [97, 4096])
+def test_engine_in_small_chunks_matches_one_pass(group, monkeypatch, chunk):
+    """Every round reduced ``chunk`` candidates a pass (and the top-K
+    exchange sorting a row at a time, where a row has more entries than the
+    chunk) gives the one-pass results: EA in all five plans (and their
+    round counts) and CC bit for bit, PageRank within PR_TOL; the plans
+    that see every window edge at world size 1 equal JAX's EA, and CC
+    JAX's rounds.  (At world size 1 the index budget of 1024 does not hold
+    the whole window, so the index plans are held to the one-pass run.)"""
+    jg, win = _jax_case()
+    one_pass = engine_ranks(0, (1, 1))
+    monkeypatch.setattr(tge, "EDGE_CHUNK", chunk)
+    got = engine_ranks(0, (1, 1))
+    ref = _jax_ea(jg, win)
+    for name in ("scan", "index", "topk8", "topk64", "index_topk8"):
+        assert (got[f"ea_{name}"][0] == one_pass[f"ea_{name}"][0]).all(), name
+        assert got[f"ea_{name}"][1] == one_pass[f"ea_{name}"][1], name
+        if "index" not in name:
+            assert (got[f"ea_{name}"][0] == ref).all(), name
+    np.testing.assert_allclose(got["pagerank"], one_pass["pagerank"], **PR_TOL)
+    np.testing.assert_allclose(got["pagerank"], _jax_pagerank_rounds(jg, win), **PR_TOL)
+    assert (got["cc"] == one_pass["cc"]).all()
+    assert (got["cc"] == _jax_cc_rounds(jg, win)).all()

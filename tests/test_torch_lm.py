@@ -179,8 +179,12 @@ def test_cross_entropy_masked():
 # ---------------------------------------------------------------------------
 
 def test_registry_carries_the_reference_widths():
-    assert list_archs() == ["kimi-k2-1t-a32b", "mistral-large-123b", "phi4-mini-3.8b",
-                            "qwen3-moe-30b-a3b", "smollm-135m"]
+    from repro.configs import list_archs as jlist_archs
+
+    assert list_archs() == jlist_archs()   # every family, since the GNN / NequIP / MIND port
+    assert [a for a in list_archs() if get_arch(a).family == "lm"] == [
+        "kimi-k2-1t-a32b", "mistral-large-123b", "phi4-mini-3.8b",
+        "qwen3-moe-30b-a3b", "smollm-135m"]
     with pytest.raises(KeyError):
         get_arch("nope")
     fields = [f.name for f in dataclasses.fields(ttf.LMConfig) if f.name != "dtype"]

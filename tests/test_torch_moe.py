@@ -255,3 +255,34 @@ def test_moe_param_counts_and_layout_match_jax():
         blk = model.layers[1]
         assert torch.equal(blk.moe["w_gate"], model.params["layers"]["moe"]["w_gate"][1])
     assert dataclasses.asdict(tqwen.CFG.moe) == dataclasses.asdict(jqwen.CFG.moe)
+
+
+@pytest.mark.parametrize("router", ["zero", "tied"])
+@pytest.mark.parametrize("dense_mix", [False, True])
+def test_route_breaks_ties_as_jax(router, dense_mix):
+    """Equal router probabilities pick the lower expert ids first, as
+    ``jax.lax.top_k`` does (E 4, K 2, T 8, d 4): a zero router ties every
+    expert, a tied one pairs experts {0, 2} and {1, 3} by equal columns.
+    Top-k ids bit for bit, outputs and the auxiliary loss within OUT_TOL."""
+    kw = dict(n_experts=4, top_k=2, d_ff=8, capacity_factor=8.0, dense_mix=dense_mix)
+    jcfg, tcfg = jmoe.MoEConfig(**kw), tmoe.MoEConfig(**kw)
+    jparams, _ = jmoe.init_moe(jax.random.PRNGKey(0), 4, jcfg)
+    rng = np.random.default_rng(7)
+    if router == "zero":
+        w = np.zeros((4, 4), np.float32)
+    else:
+        col = rng.standard_normal((4, 2)).astype(np.float32)
+        w = np.concatenate([col, col], axis=1)
+    jparams = dict(jparams, router=jnp.asarray(w))
+    tparams = jax.tree_util.tree_map(lambda a: torch.tensor(np.asarray(a)), jparams)
+    x = rng.standard_normal((8, 4)).astype(np.float32)
+    _, jids = jax.lax.top_k(jax.nn.softmax(jnp.asarray(x) @ jparams["router"], -1), 2)
+    with torch.no_grad():
+        _, _, tids, _ = tmoe._route(tparams, torch.as_tensor(x), tcfg)
+        out, aux = tmoe.moe_ffn(tparams, torch.as_tensor(x), tcfg)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    if router == "zero":
+        assert (tids.numpy() == [0, 1]).all()
+    jout, jaux = jmoe.moe_ffn(jparams, jnp.asarray(x), jcfg)
+    _close(out, jout, OUT_TOL)
+    _close(aux, jaux, OUT_TOL)
