@@ -133,12 +133,27 @@
    table (serve_p99 at B 512, retrieval_cand over 1e6 candidates: the ids
    equal a stable sort of the same scores on the CPU) and train_batch
    (65,536 users) on a table cut to 1e7 rows.
-14. Prints the kernel table as one JSON line (each kernel's launches on
-   the counted paths of items 4–7, 9 and 10, the ladder phase's, the
+14. Sharded training on a one-rank NCCL group's (1, 1) ``("data",
+   "model")`` DTensor mesh, launch counts read around it (0: no kernel on
+   the path): one step of qwen3-moe at 4 layers (SGD) with DTensor
+   parameters against its unsharded step; smollm-135m at its published
+   config, 6 steps with DTensor parameters and AdamW state in turns with
+   the same steps unsharded (losses, gradient norms and parameters held to
+   ``TRAIN_TOL``; ms a step, peak memory, a profiled sharded step's idle
+   share); a sharded checkpoint restored onto the (1, 1) mesh of a fresh
+   process group with ``shardings=``, its next 3 losses equal to the
+   uninterrupted run's.
+15. The examples (``examples/*_torch.py``) on the card against their
+   ``--device cpu`` runs, launch counts read around them: the quickstart,
+   contact tracing, the distributed example under ``torchrun`` (one NCCL
+   rank) against 8 gloo ranks, LM serving (K4 must launch), the trainer's
+   200 steps and 5 steps from CPU-drawn weights against the CPU's.
+16. Prints the kernel table as one JSON line (each kernel's launches on
+   the counted paths of items 4–7, 9, 10 and 15, the ladder phase's, the
    history/daemon phase's, the distributed phase's, the MoE serving
-   phase's, the training phase's, the Kairos and the models phases' also
-   apart, K4 at the MoE decode shape, and K1's launches inside laddered
-   solves), then the result line.  Each phase logs its wall time and its
+   phase's, the training phase's, the Kairos, the models, the sharded
+   training and the examples phases' also apart, K4 at the MoE decode
+   shape, and K1's launches inside laddered solves), then the result line.  Each phase logs its wall time and its
    peak device memory.
 
 Any mismatch raises, and the script exits non-zero.  It imports nothing
@@ -3438,6 +3453,437 @@ def moe_path(torch, np, seed, k4, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# sharded training on a DTensor mesh (a one-rank NCCL group)
+# ---------------------------------------------------------------------------
+
+# smollm-135m at its published config (TRAIN_ARCH, TRAIN_BATCH x TRAIN_SEQ)
+# trained through LMFamily.train_objects (AdamW at SHARD_LR) with DTensor
+# parameters and state on a (1, 1) ("data", "model") mesh and unsharded,
+# in turns from the same weights and batches (NCCL
+# refuses two ranks on one card, so world size 1 is all one card allows):
+# SHARD_STEPS steps each (ms a step: medians), held to TRAIN_TOL's loss,
+# gradient-norm and parameter bounds; then a checkpoint, SHARD_CONT more
+# steps, and the same steps from the checkpoint restored onto the (1, 1)
+# mesh of a fresh process group (both under deterministic algorithms: the
+# losses must be equal).  Then one step of MOE_ARCH at MOE_SERVE_LAYERS
+# layers (the MoE dispatch under DTensor) against its unsharded step.
+SHARD_STEPS, SHARD_CONT = 6, 3
+SHARD_LR = 3e-4     # LMFamily.optimizer's default rate (smollm's AdamW)
+# The bfloat16 MoE step: a router probability at the top-k boundary rounds
+# either way, and a token sent to another expert moves the mean loss by
+# ~1e-5 while the gradients barely move (an H100 80GB HBM3 at 700 W read a
+# loss 1.19e-5 and a gradient norm 7.7e-8 apart), so its loss is held to
+# 1e-4 and the rest to TRAIN_TOL
+MOE_SHARD_TOL = dict(TRAIN_TOL, loss_rel=1e-4)
+
+
+def device_params_gap(got, want, lr):
+    """``params_gap`` leaf by leaf on the device (trees too large for the
+    host's float64): (largest entry gap over ``lr``, share of entries more
+    than 1e-5 of their leaf's largest value apart)."""
+    from repro_torch.distributed.sharding import full_value
+    from repro_torch.tree import tree_items
+
+    worst, off, total = 0.0, 0, 0
+    for (_, a), (_, b) in zip(tree_items(got), tree_items(want)):
+        a, b = full_value(a.detach()).float(), full_value(b.detach()).float()
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()) / lr)
+        off += int((d > 1e-5 * b.abs().max()).sum())
+        total += d.numel()
+    return worst, off / total
+
+
+def _trees_equal(torch, got, want) -> bool:
+    from repro_torch.distributed.sharding import full_value
+    from repro_torch.tree import tree_items
+
+    return all(torch.equal(full_value(a.detach()), full_value(b.detach()))
+               for (_, a), (_, b) in zip(tree_items(got), tree_items(want)))
+
+
+def sharded_moe_step(torch, np, seed, mesh, device="cuda"):
+    """One train step of MOE_ARCH at MOE_SERVE_LAYERS layers with DTensor
+    parameters and state on ``mesh`` against its unsharded step (the MoE
+    dispatch under DTensor).  Returns its record."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device=device)
+    log(f"[sharded] before the MoE step: {torch.cuda.memory_allocated()} B allocated")
+    # one MoE step at MOE_SERVE_LAYERS layers, the unsharded step first;
+    # both draw the same weights from one seed, and the unsharded result
+    # waits on the host.  The step takes SGD with momentum: AdamW's float32
+    # update of the 3.1e9-parameter tree beside its moments (24.9 GB) ran
+    # out of the card's 80 GB (the family's AdamW is the smollm run's)
+    mfam = get_arch(MOE_ARCH)
+    mcfg = mfam.mesh_cfg(dataclasses.replace(mfam.cfg, n_layers=MOE_SERVE_LAYERS), mesh)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in next(
+        MarkovCorpus(mcfg.vocab, seed=seed).batches(MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                                                    seed=seed + 1)).items()}
+    moe = {}
+    for label in ("unsharded", "sharded"):
+        gen.manual_seed(seed + 8)
+        model = tf.init_lm(mcfg, gen, device)
+        if label == "sharded":
+            model = mfam.shard(model, mesh)
+        opt = make_optimizer("sgd", SHARD_LR)
+        step = make_train_step(lambda p, b: tf.loss_fn(model, b), opt, TrainConfig())
+        state = init_train_state(model.params, opt, TrainConfig())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if label == "sharded":
+            from repro_torch.distributed.sharding import use_mesh
+
+            with use_mesh(mesh, rules=mfam.rules_override):
+                _, _, m = step(model.params, state, batch)
+        else:
+            _, _, m = step(model.params, state, batch)
+        moe[label] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          peak=torch.cuda.max_memory_allocated(), params=model.params)
+        del state, step, opt, model, m
+        if label == "unsharded":
+            moe[label]["params"] = tree_map(lambda p: p.detach().cpu(),
+                                            moe[label]["params"])
+        torch.cuda.empty_cache()
+    moe["unsharded"]["params"] = tree_map(lambda p: p.to(device),
+                                          moe["unsharded"]["params"])
+    mgap, mshare = device_params_gap(moe["sharded"]["params"],
+                                     moe["unsharded"]["params"], SHARD_LR)
+    mbit = _trees_equal(torch, moe["sharded"]["params"], moe["unsharded"]["params"])
+    a, b = moe["sharded"], moe["unsharded"]
+    mfig = dict(loss_rel=abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                grad_norm_rel=abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"],
+                params_gap_lr=mgap, params_off_share=mshare)
+    log(f"[sharded] {mcfg.name} at {mcfg.n_layers} layers ({mcfg.moe.n_experts} experts, "
+        f"n_groups {mcfg.moe.n_groups}), batch {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}: one "
+        f"step sharded loss {a['loss']:.6f} in {a['ms']:.1f} ms (peak {a['peak']} B), "
+        f"unsharded {b['loss']:.6f} in {b['ms']:.1f} ms (peak {b['peak']} B); figures "
+        f"{mfig} (tolerances {MOE_SHARD_TOL}); parameters bit-identical: {mbit}")
+    bad = [k for k in ("loss_rel", "grad_norm_rel", "params_gap_lr")
+           if not mfig[k] <= MOE_SHARD_TOL[k]]
+    if bad:
+        raise AssertionError(f"[sharded] MoE step off the unsharded one: {bad} {mfig}")
+    del moe, a, b
+    return dict(graph="lm", algorithm="sharded_train_step", arch=mcfg.name,
+                layers=mcfg.n_layers, mesh=[1, 1], batch=MOE_TRAIN_BATCH,
+                seq=MOE_TRAIN_SEQ, bitwise=mbit, **mfig)
+
+
+def sharded_train_path(torch, np, seed, device="cuda"):
+    """Sharded training on a one-rank NCCL group (see SHARD_STEPS): one
+    qwen3-moe step at MOE_SERVE_LAYERS layers (``sharded_moe_step``), then
+    smollm-135m sharded against unsharded and the checkpoint restored onto a
+    fresh mesh.  Returns records."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.distributed import init_process_group, make_mesh
+    from repro_torch.distributed.sharding import spec_tree_sharding
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import state_axes
+    from repro_torch.train.train_step import TrainConfig, init_train_state
+    from repro_torch.tree import tree_map
+
+    def group():
+        init_process_group(device, init_method=f"tcp://localhost:{free_port()}",
+                           world_size=1, rank=0)
+        return make_mesh((1, 1), ("data", "model"), device=device)
+
+    fam = get_arch(TRAIN_ARCH)
+    cfg = fam.cfg
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 7)
+    base = tf.init_lm(cfg, gen, device)
+    clone = lambda: tree_map(lambda p: p.detach().clone(), base.params)  # noqa: E731
+
+    def trainer(model, mesh):
+        opt, step = fam.train_objects(model, mesh)
+        return step, init_train_state(model.params, opt, TrainConfig())
+
+    def batches(skip=0):
+        it = MarkovCorpus(cfg.vocab, seed=seed).batches(TRAIN_BATCH, TRAIN_SEQ, seed=seed + 1)
+        for _ in range(skip):
+            next(it)
+        return ({k: torch.as_tensor(v, device=device) for k, v in b.items()} for b in it)
+
+    ckpt = ROOT / "build" / "sharded_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mesh = group()
+    try:
+        moe_rec = sharded_moe_step(torch, np, seed, mesh, device)
+        torch.cuda.empty_cache()
+        runs = {}
+        for label in ("unsharded", "sharded"):
+            model = tf.LM(cfg, clone())
+            if label == "sharded":
+                model = fam.shard(model, mesh)
+            step, state = trainer(model, mesh if label == "sharded" else None)
+            runs[label] = dict(model=model, step=step, state=state, batches=batches(),
+                               loss=[], grad_norm=[], ms=[])
+        wq = runs["sharded"]["model"].params["layers"]["wq"]
+        placements = [str(p) for p in wq.placements]
+        for i in range(SHARD_STEPS):  # in turns, the order alternating
+            for label in (("unsharded", "sharded") if i % 2 == 0 else
+                          ("sharded", "unsharded")):
+                r = runs[label]
+                batch = next(r["batches"])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, r["state"], m = r["step"](r["model"].params, r["state"], batch)
+                r["loss"].append(float(m["loss"]))
+                r["grad_norm"].append(float(m["grad_norm"]))
+                r["ms"].append((time.perf_counter() - t0) * 1e3)
+        u, sh = runs["unsharded"], runs["sharded"]
+        gap, share = device_params_gap(sh["model"].params, u["model"].params, SHARD_LR)
+        bitwise = _trees_equal(torch, sh["model"].params, u["model"].params)
+        fig = dict(loss_rel=max(abs(a - b) / abs(b) for a, b in zip(sh["loss"], u["loss"])),
+                   grad_norm_rel=max(abs(a - b) / b for a, b in
+                                     zip(sh["grad_norm"], u["grad_norm"])),
+                   params_gap_lr=gap, params_off_share=share)
+        peaks = {}
+        for label, r in runs.items():  # one more step each, its peak alone
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, r["state"], m = r["step"](r["model"].params, r["state"], next(r["batches"]))
+            float(m["loss"])
+            peaks[label] = torch.cuda.max_memory_allocated()
+        prof = profile_query(
+            torch, f"[sharded] one {TRAIN_ARCH} step on a (1, 1) mesh",
+            lambda: float(sh["step"](sh["model"].params, sh["state"],
+                                     next(sh["batches"]))[2]["loss"]), top=10, warm=False)
+        med = {k: float(np.median(r["ms"])) for k, r in runs.items()}
+        sh_ms, un_ms = sh["ms"], u["ms"]
+        log(f"[sharded] {cfg.name} at batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW at {SHARD_LR}, "
+            f"{SHARD_STEPS} steps in turns: sharded (wq {placements}) losses {sh['loss']}, "
+            f"unsharded {u['loss']}; figures {fig} (tolerances {TRAIN_TOL}); parameters "
+            f"bit-identical: {bitwise}; ms a step sharded {[round(t, 3) for t in sh['ms']]} "
+            f"(median {med['sharded']:.3f}), unsharded {[round(t, 3) for t in u['ms']]} "
+            f"(median {med['unsharded']:.3f}); peak memory of a step sharded "
+            f"{peaks['sharded']} B, unsharded {peaks['unsharded']} B; the profiled sharded "
+            f"step {prof['busy_us']:.1f} us busy: idle share "
+            f"{1 - prof['busy_us'] / (med['sharded'] * 1e3):.3f} against the median")
+        bad = [k for k in ("loss_rel", "grad_norm_rel", "params_gap_lr")
+               if not fig[k] <= TRAIN_TOL[k]]
+        if bad:
+            raise AssertionError(f"[sharded] sharded steps off the unsharded ones: {bad} {fig}")
+        del runs["unsharded"], u
+        # checkpoint, then the uninterrupted continuation (deterministic)
+        done = SHARD_STEPS + 2  # the peak step and the profiled step
+        torch.use_deterministic_algorithms(True)
+        try:
+            CheckpointManager(str(ckpt)).save(done, {"params": sh["model"].params,
+                                                     "state": sh["state"]})
+            cont = []
+            for _ in range(SHARD_CONT):
+                _, sh["state"], m = sh["step"](sh["model"].params, sh["state"],
+                                               next(sh["batches"]))
+                cont.append(float(m["loss"]))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        del runs, sh
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # the survivors' fresh group: restore onto its mesh and go on
+    mesh = group()
+    try:
+        axes, shapes = tf.param_axes(cfg), tf.param_shapes(cfg)
+        template = tf.LM(cfg, clone())
+        _, tmpl_state = trainer(template, None)
+        shardings = {"params": spec_tree_sharding(axes, shapes, mesh),
+                     "state": {"opt": spec_tree_sharding(state_axes(fam.optimizer_kind, axes,
+                                                                    shapes),
+                                                         {"m": shapes, "v": shapes}, mesh),
+                               "step": None}}
+        torch.use_deterministic_algorithms(True)
+        try:
+            restored, step0 = CheckpointManager(str(ckpt)).restore(
+                {"params": template.params, "state": tmpl_state}, shardings=shardings)
+            del template, tmpl_state
+            model = tf.LM(cfg, restored["params"])
+            step, _ = trainer(model, mesh)
+            state, it, resumed = restored["state"], batches(skip=step0), []
+            for _ in range(SHARD_CONT):
+                _, state, m = step(model.params, state, next(it))
+                resumed.append(float(m["loss"]))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        del model, state, restored
+        log(f"[sharded] checkpoint at step {step0}, restored onto a fresh (1, 1) mesh with "
+            f"shardings=: the next {SHARD_CONT} losses {resumed}, the uninterrupted run's "
+            f"{cont}: equal {resumed == cont}")
+        if resumed != cont:
+            raise AssertionError(f"[sharded] resumed losses {resumed} != {cont}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        del base
+        torch.cuda.empty_cache()
+
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return [dict(graph="lm", algorithm="sharded_train", arch=cfg.name, mesh=[1, 1],
+                 world=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=SHARD_STEPS,
+                 wq_placements=placements, bitwise=bitwise,
+                 step_ms_sharded=sh_ms, step_ms_unsharded=un_ms,
+                 step_ms_median_sharded=med["sharded"],
+                 step_ms_median_unsharded=med["unsharded"],
+                 peak_memory_bytes_sharded=peaks["sharded"],
+                 peak_memory_bytes_unsharded=peaks["unsharded"],
+                 profile_wall_us=prof["wall_us"], profile_busy_us=prof["busy_us"],
+                 idle_share=1 - prof["busy_us"] / (med["sharded"] * 1e3),
+                 profile_launches=sum(prof["count_by_kernel"].values()),
+                 resumed_equal=True, **fig),
+            moe_rec]
+
+
+# ---------------------------------------------------------------------------
+# the examples (examples/*_torch.py) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+EXAMPLE_TRAIN_CMP_STEPS = 5      # card against CPU from the same weights
+EXAMPLE_PR_TOL = dict(rtol=1e-5, atol=1e-7)   # test_torch_pagerank.py's
+EXAMPLE_BC_REL = 1e-5                         # test_torch_betweenness.py's
+
+
+def _example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _example_cli(argv, timeout=600):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable] + argv, capture_output=True, text=True,
+                         timeout=timeout, env=env, cwd=str(ROOT))
+    if run.returncode != 0:
+        raise AssertionError(f"{' '.join(argv)} exited {run.returncode}:\n{run.stderr[-3000:]}")
+    return run.stdout.strip().splitlines(), time.perf_counter() - t0
+
+
+def examples_path(torch, np, seed, device="cuda"):
+    """Each ``examples/*_torch.py`` on the card, held to its ``--device cpu``
+    run on this machine (every CPU run takes well under a minute here):
+    integers equal, floats within the reference's tolerances.  The
+    distributed example runs under ``torchrun`` (one NCCL rank) against 8
+    spawned gloo ranks; the trainer runs its default 200 steps on the card
+    (loss falling) and EXAMPLE_TRAIN_CMP_STEPS steps from the same
+    CPU-drawn weights on both (TF32 off, losses within rtol 1e-5); serving
+    must launch K4.  Returns (records, launch counts of the card runs)."""
+    from unittest import mock
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_mod
+    from repro_torch.tree import tree_map
+
+    rec, bad = dict(graph="examples", algorithm="examples"), []
+    reset_launch_counts()
+
+    q = _example("quickstart_torch")
+    (card, rec["quickstart_card_s"]), (cpu, rec["quickstart_cpu_s"]) = \
+        _timed(lambda: q.run(device)), _timed(lambda: q.run("cpu"))
+    for k in ("n_vertices", "n_edges", "n_indexed", "method", "budget", "selectivity"):
+        if card[k] != cpu[k]:
+            bad.append(f"quickstart {k}: {card[k]} != {cpu[k]}")
+    for k in ("arrival", "components"):
+        if not np.array_equal(card[k], cpu[k]):
+            bad.append(f"quickstart {k}: {card[k]} != {cpu[k]}")
+    if not np.allclose(card["pagerank"], cpu["pagerank"], **EXAMPLE_PR_TOL):
+        bad.append(f"quickstart pagerank: {card['pagerank']} vs {cpu['pagerank']}")
+
+    c = _example("contact_tracing_torch")
+    (card, rec["contact_tracing_card_s"]), (cpu, rec["contact_tracing_cpu_s"]) = \
+        _timed(lambda: c.run(device=device)), _timed(lambda: c.run(device="cpu"))
+    for k in ("n_indexed", "patient_zero", "windows"):
+        if card[k] != cpu[k]:
+            bad.append(f"contact_tracing {k}: {card[k]} != {cpu[k]}")
+    if [v for v, _ in card["top"]] != [v for v, _ in cpu["top"]] or not all(
+            abs(a - b) <= EXAMPLE_BC_REL * abs(b) for (_, a), (_, b) in
+            zip(card["top"], cpu["top"])):
+        bad.append(f"contact_tracing top: {card['top']} vs {cpu['top']}")
+    rec["contact_tracing"] = card["windows"]
+
+    script = "examples/distributed_analytics_torch.py"
+    (card, rec["distributed_card_s"]) = _example_cli(
+        ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1", script]
+        + (["--device", device] if device != "cuda" else []))
+    (cpu, rec["distributed_cpu_s"]) = _example_cli([script, "--device", "cpu"])
+    for line in card:
+        log(f"[examples] torchrun {line}")
+    if card[1:] != cpu[1:] or card[1:3] != ["scan path == single-device: True",
+                                           "selective path == single-device: True"]:
+        bad.append(f"distributed_analytics: {card} vs {cpu}")
+    rec["distributed"] = card
+
+    s = _example("serve_lm_torch")
+    (card, rec["serve_lm_card_s"]), (cpu, rec["serve_lm_cpu_s"]) = \
+        _timed(lambda: s.run(device=device)), _timed(lambda: s.run(device="cpu"))
+    counts = dict(launch_counts())
+    fields = ("requests_completed", "tokens_generated", "steps")
+    if [getattr(card, f) for f in fields] != [getattr(cpu, f) for f in fields]:
+        bad.append(f"serve_lm: {card} vs {cpu}")
+    if counts["decode_attention"] <= 0:
+        bad.append(f"serve_lm launched no K4: {counts}")
+    rec["serve_lm"] = {f: getattr(card, f) for f in fields}
+
+    t = _example("train_lm_torch")
+    ckpt = ROOT / "build" / "example_ckpt"
+    losses, rec["train_lm_card_s"] = _timed(lambda: t.run(device=device,
+                                                          ckpt=str(ckpt / "card")))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        bad.append(f"train_lm: losses not finite and falling: {losses[0]} -> {losses[-1]}")
+    rec["train_lm_first_last"] = [losses[0], losses[-1]]
+    draw = train_mod.tf.init_lm
+
+    def cpu_drawn(cfg, generator, device=None):
+        m = draw(cfg, torch.Generator().manual_seed(seed), "cpu")
+        return train_mod.tf.LM(cfg, tree_map(lambda p: p.detach().to(device), m.params))
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with mock.patch.object(train_mod.tf, "init_lm", cpu_drawn):
+            pair = [t.run(steps=EXAMPLE_TRAIN_CMP_STEPS, device=d, ckpt=str(ckpt / d))
+                    for d in (device, "cpu")]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    import shutil
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*pair))
+    if not rel <= TRAIN_TOL["loss_rel"]:
+        bad.append(f"train_lm: card losses {pair[0]} vs the CPU's {pair[1]}")
+    rec["train_lm_loss_rel"] = rel
+    log(f"[examples] {json.dumps(rec)}; K4 and the other kernels in the card runs: {counts}")
+    if bad:
+        raise AssertionError("[examples] " + "; ".join(bad))
+    return [rec], counts
+
+
+# ---------------------------------------------------------------------------
 # the paper's cells at |V| = 1e7, |E| = 1e9 (configs/kairos.py)
 # ---------------------------------------------------------------------------
 
@@ -4500,7 +4946,21 @@ def main(argv=None) -> int:
         records += mind_path(torch, np, args.seed, "cuda")
     model_counts = launch_counts()
     log(f"models phase launches: {model_counts}")
-    for label, got in (("kairos", kairos_counts), ("models", model_counts)):
+    # -- sharded training on a one-rank NCCL mesh (no port kernel) ------------
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    with phase_clock(torch, "sharded training"):
+        records += sharded_train_path(torch, np, args.seed)
+    sharded_counts = launch_counts()
+    log(f"sharded training phase launches: {sharded_counts}")
+    # -- the examples on the card against the CPU (K4 in serve_lm) -------------
+    reset_launch_counts()
+    with phase_clock(torch, "examples"):
+        example_records, example_counts = examples_path(torch, np, args.seed)
+    records += example_records
+    log(f"examples phase launches: {example_counts}")
+    for label, got in (("kairos", kairos_counts), ("models", model_counts),
+                       ("sharded training", sharded_counts)):
         if any(got.values()):
             raise AssertionError(f"a port kernel launched in the {label} phase, whose "
                                  f"reference runs no Pallas kernel: {got}")
@@ -4520,9 +4980,12 @@ def main(argv=None) -> int:
         row["training_launches"] = train_counts[row["name"]]
         row["kairos_launches"] = kairos_counts[row["name"]]
         row["models_launches"] = model_counts[row["name"]]
+        row["sharded_training_launches"] = sharded_counts[row["name"]]
+        row["examples_launches"] = example_counts[row["name"]]
         row["launches"] = (counts[row["name"]] + row["ladder_launches"]
                            + row["history_daemon_launches"]
-                           + row["distributed_launches"] + row["moe_serving_launches"])
+                           + row["distributed_launches"] + row["moe_serving_launches"]
+                           + row["examples_launches"])
         if row["name"] == "segment_min_tiles":
             row["launches_in_laddered_solves"] = laddered_k1
         if row["launches"] <= 0:

@@ -5,7 +5,11 @@ language models (``LMFamily``, ``LM_CELLS``), the GNNs (``GNNFamily``,
 shape cells; ``smoke`` runs a reduced config on a device, ``model_flops``
 counts a cell's model FLOPs (equal to the reference's), and
 ``train_objects`` builds the optimizer and train step that the reference's
-dry run compiles for a cell.
+dry run compiles for a cell.  An ``LMFamily`` trains sharded on a
+``DeviceMesh``: ``shard`` places a model's parameters as DTensors by
+``param_axes`` under the family's ``rules_override``, and
+``train_objects(model, mesh)`` runs its step under ``use_mesh`` with those
+rules, as the reference's ``lowerable`` does.
 
 Not ported: ``lowerable`` and ``layer_scaled_lowerable``, which build XLA
 dry-run programs with shardings (a JAX mechanism: ``launch/dryrun.py``
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchSpec, Cell
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import distribute_tree, use_mesh
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import mind as mind_mod
 from repro_torch.models import nequip as nequip_mod
@@ -54,8 +59,7 @@ class LMFamily(ArchSpec):
         self.optimizer_kind = optimizer
         self.opt_kw = opt_kw or {}
         self.microbatches = microbatches
-        # per-arch logical -> mesh rule overrides (data; sharded training is
-        # ROADMAP Queue 1 item 16b)
+        # per-arch logical -> mesh rule overrides, live under a mesh
         self.rules_override = rules_override
         self.cells = dict(LM_CELLS)
 
@@ -63,12 +67,41 @@ class LMFamily(ArchSpec):
         kw = dict(self.opt_kw)
         return opt_mod.make_optimizer(self.optimizer_kind, kw.pop("lr", 3e-4), **kw)
 
-    def train_objects(self, model: tf.LM):
-        """(optimizer, step) for ``model``: the step takes ``model.params``."""
+    def train_objects(self, model: tf.LM, mesh=None):
+        """(optimizer, step) for ``model``: the step takes ``model.params``.
+        With ``mesh`` (a model from ``shard``) it runs under ``use_mesh`` with
+        the family's rules."""
         optimizer = self.optimizer()
         step = make_train_step(lambda p, b: tf.loss_fn(model, b), optimizer,
                                TrainConfig(microbatches=self.microbatches))
-        return optimizer, step
+        if mesh is None:
+            return optimizer, step
+        rules = self.rules_override
+
+        def sharded_step(params, state, batch):
+            with use_mesh(mesh, rules=rules):
+                return step(params, state, batch)
+
+        return optimizer, sharded_step
+
+    @staticmethod
+    def mesh_cfg(cfg: tf.LMConfig, mesh) -> tf.LMConfig:
+        """Mesh-dependent config tweaks: MoE dispatch groups track the
+        batch-sharding degree (group-local dispatch, the reference's
+        ``_mesh_cfg``)."""
+        if cfg.moe is None or mesh is None:
+            return cfg
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        g = sizes.get("pod", 1) * sizes.get("data", 1)
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_groups=g))
+
+    def shard(self, model: tf.LM, mesh) -> tf.LM:
+        """``model``'s parameters as DTensors on ``mesh`` (every rank passes
+        the same values), placed by ``param_axes`` under the family's rules;
+        the config is ``mesh_cfg``'s."""
+        cfg = self.mesh_cfg(model.cfg, mesh)
+        return tf.LM(cfg, distribute_tree(model.params, tf.param_axes(cfg), mesh,
+                                          self.rules_override))
 
     def layer_count(self) -> int:
         return self.cfg.n_layers

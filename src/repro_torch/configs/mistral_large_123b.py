@@ -15,9 +15,9 @@ CFG = LMConfig(
     q_chunk=1 << 20,
 )
 
-# The reference's token-sharded rules (batch over data, sequence over model,
-# full ZeRO-3 weight sharding over both axes), copied as data: sharded
-# training is ROADMAP Queue 1 item 16.
+# The reference's token-sharded rules: batch over data, sequence over model,
+# full ZeRO-3 weight sharding over both axes.  ``LMFamily`` applies them
+# under a mesh (``shard``, ``train_objects(model, mesh)``).
 TOKEN_SHARDED_RULES = {
     "seq": "model",
     "heads": None,

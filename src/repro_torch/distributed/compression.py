@@ -17,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import replicated
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -27,8 +28,9 @@ class CompressionConfig:
 
 
 def init_error_feedback(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                    params)
+    from repro_torch.train.optimizer import state_zeros
+
+    return tree_map(state_zeros, params)
 
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,7 +53,9 @@ def _compress_leaf_int8(g, err):
 
 def _compress_leaf_topk(g, err, ratio: float):
     g_fb = g.float() + err
-    flat = g_fb.reshape(-1)
+    # DTensor: topk over a sharded leaf has no sharding rule; the threshold
+    # is taken over the whole leaf on every rank
+    flat = replicated(g_fb, *range(g_fb.ndim)).reshape(-1)
     k = max(int(flat.shape[0] * ratio), 1)
     thresh = torch.topk(torch.abs(flat), k).values[-1]
     g_hat = torch.where(torch.abs(g_fb) >= thresh, g_fb, 0.0)

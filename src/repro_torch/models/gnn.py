@@ -9,10 +9,8 @@ graphs -> pooled readout; + ``labels`` / ``label_mask`` for the loss).
 The parameters are the reference's tree (``{"layers": [per-layer dicts],
 "head_w", "head_b"}``) of tensors: ``init_gnn`` draws them from a
 ``torch.Generator`` on their device, ``params_from_numpy`` carries the
-reference's over.
-
-Not ported: ``gnn_param_axes``, the logical sharding axes of the
-parameters (sharded training is ROADMAP Queue 1 item 16b).
+reference's over.  ``gnn_param_axes`` gives the parameters' logical
+sharding axes, as the reference's does.
 """
 from __future__ import annotations
 
@@ -25,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import carry_params, draw_params
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +98,11 @@ def init_gnn(cfg: GNNConfig, generator: torch.Generator, device=None) -> Dict:
     return draw_params(_layout(cfg), cfg.dtype, generator, device)
 
 
+def gnn_param_axes(params) -> Any:
+    """Feature dims shard over ``model`` ('feat'); everything else replicated."""
+    return tree_map(lambda p: (None, "feat") if p.ndim == 2 else (None,) * p.ndim, params)
+
+
 def params_from_numpy(tree: Dict, cfg: GNNConfig, device=None) -> Dict:
     """The reference's ``init_gnn`` tree as numpy arrays -> the port's."""
     return carry_params(_layout(cfg), tree, cfg.dtype, device)
@@ -160,5 +164,5 @@ def gnn_loss(params, batch, cfg: GNNConfig):
     return nll.mean()
 
 
-__all__ = ["GNNConfig", "aggregate", "init_gnn", "params_from_numpy", "gnn_forward",
-           "gnn_loss"]
+__all__ = ["GNNConfig", "aggregate", "init_gnn", "gnn_param_axes", "params_from_numpy",
+           "gnn_forward", "gnn_loss"]

@@ -1,8 +1,8 @@
 """Shared layers of the language model, plain functions on tensors (the
 port of ``repro/models/layers.py``).
 
-The reference's ``constrain`` / ``gather_fsdp`` sharding hints are
-identities without a mesh and are dropped.  ``flash_attention`` is plain
+``swiglu`` keeps the reference's ``constrain`` of its hidden activation
+(the identity without a mesh).  ``flash_attention`` is plain
 ``jnp`` in the reference and plain PyTorch here, with the same chunking.
 ``decode_attention`` goes through the flash-decode kernel K4
 (``kernels/decode_attention.py``) on the card and its plain version on the
@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import axis0_local, constrain, is_dtensor, replicated
 from repro_torch.kernels import decode_attention as _k4
 
 
@@ -74,6 +75,13 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512,
     multiple of ``min(q_chunk, S)`` and of ``min(kv_chunk, S)``; the
     reference's reshape raises otherwise, and so does this.
     """
+    if is_dtensor(q):
+        # DTensor: each rank attends its own batch rows, heads and sequence
+        # whole (the chunks' einsums flatten sharded dimensions, which
+        # DTensor's view rules refuse, and the causal mask needs the whole
+        # sequence's positions)
+        return axis0_local(lambda *t: flash_attention(
+            *t, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk), 1, q, k, v)
     B, S, H, Dh = q.shape
     KH = k.shape[2]
     G = H // KH
@@ -129,13 +137,18 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    h = constrain(h, "batch", "seq", "mlp") if h.ndim == 3 else h
+    return h @ w_down
 
 
 def softmax_cross_entropy(logits, labels, mask=None):
     """Mean token cross-entropy in float32 (logsumexp); with ``mask``, the
     masked mean over max(sum(mask), 1).  logits [..., V], labels [...]."""
-    logits = logits.float()
+    # DTensor: the vocabulary is made whole first (a gather over
+    # vocab-sharded logits takes the masked-partial path, which fails for
+    # logits of more than two dimensions)
+    logits = replicated(logits.float(), -1)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = lse - ll

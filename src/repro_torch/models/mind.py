@@ -7,9 +7,8 @@ reference's ``lax.scan`` over ``capsule_iters`` is a Python loop) ->
 label-aware attention (train) / max-over-interest scoring (retrieval).
 Retrieval's top-k is a stable descending sort, so among equal scores the
 lower candidate position comes first, as ``jax.lax.top_k`` orders them.
-
-Not ported: ``mind_param_axes``, the logical sharding axes of the
-parameters (sharded training is ROADMAP Queue 1 item 16b).
+``mind_param_axes`` gives the parameters' logical sharding axes: the item
+table's rows over ``"rows"``, everything else replicated.
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, reduced
 from repro_torch.models.params import carry_params, draw_params
 
 
@@ -56,15 +55,26 @@ def init_mind(cfg: MINDConfig, generator: torch.Generator, device=None) -> Dict:
     return draw_params(_layout(cfg), cfg.dtype, generator, device)
 
 
+def mind_param_axes(params) -> Any:
+    axes = {k: (None,) * v.ndim for k, v in params.items()}
+    axes["item_embed"] = ("rows", None)
+    return axes
+
+
 def params_from_numpy(tree: Dict, cfg: MINDConfig, device=None) -> Dict:
     """The reference's ``init_mind`` tree as numpy arrays -> the port's."""
     return carry_params(_layout(cfg), tree, cfg.dtype, device)
 
 
+def _lookup(ids, table):
+    """Rows of ``table`` (a row-sharded DTensor's lookup reduced at once)."""
+    return reduced(F.embedding(ids, table))
+
+
 def embedding_bag(table, ids, mask=None, combine: str = "none"):
     """EmbeddingBag: gather rows + optional masked reduce.
     ids [..., H] -> [..., H, d] ('none') or [..., d] ('sum'/'mean')."""
-    out = F.embedding(ids, table)
+    out = _lookup(ids, table)
     if mask is not None:
         out = out * mask[..., None].to(out.dtype)
     if combine == "sum":
@@ -113,9 +123,9 @@ def label_aware_attention(interests, target_e, p: float):
 def train_loss(params, batch, cfg: MINDConfig):
     """Sampled-softmax loss.  batch: {hist [B,H], target [B], negatives [B,N]}."""
     interests = user_tower(params, batch["hist"], cfg)
-    tgt_e = F.embedding(batch["target"], params["item_embed"])
+    tgt_e = _lookup(batch["target"], params["item_embed"])
     v_u = label_aware_attention(interests, tgt_e, cfg.pow_p)
-    neg_e = F.embedding(batch["negatives"], params["item_embed"])  # [B,N,d]
+    neg_e = _lookup(batch["negatives"], params["item_embed"])  # [B,N,d]
     pos_logit = torch.einsum("bd,bd->b", v_u, tgt_e)[:, None]
     neg_logit = torch.einsum("bd,bnd->bn", v_u, neg_e)
     logits = torch.cat([pos_logit, neg_logit], dim=1).float()
@@ -126,7 +136,7 @@ def train_loss(params, batch, cfg: MINDConfig):
 def score_candidates(params, interests, cand_ids):
     """Retrieval scoring: max over interests of dot(interest, candidate).
     interests [B, K, d]; cand_ids [Nc] -> scores [B, Nc]."""
-    cand_e = F.embedding(cand_ids, params["item_embed"])  # [Nc, d]
+    cand_e = _lookup(cand_ids, params["item_embed"])  # [Nc, d]
     cand_e = constrain(cand_e, "candidates", None)
     s = torch.einsum("bkd,nd->bkn", interests, cand_e)
     return s.max(dim=1).values
@@ -154,6 +164,7 @@ def retrieval_step(params, batch, cfg: MINDConfig, top_k: int = 100):
 __all__ = [
     "MINDConfig",
     "init_mind",
+    "mind_param_axes",
     "params_from_numpy",
     "embedding_bag",
     "user_tower",

@@ -12,8 +12,13 @@ reference's ``vmap``, here a loop over the groups).  The expert products
 are ``torch.einsum``: the reference leaves them to XLA, outside any Pallas
 kernel.  The Switch auxiliary loss is taken over all tokens.
 
-The reference's ``constrain`` layout hints are identities without a mesh
-and are left out.
+The reference's ``constrain`` layout hints are kept at its sites (the
+identity without a mesh).  Under a DTensor mesh the dispatch and the
+combine (sort, searchsorted, ``index_put``, ``index_add``: ops with no
+DTensor sharding rule) run through ``local_map`` on each rank's own
+dispatch groups, the group axis sharded as ``"moe_groups"`` and every other
+axis whole: the reference's ``vmap`` over data-sharded groups.  The expert
+products between them run on DTensors, experts over ``"model"``.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import axis0_local, constrain, full_value
 from repro_torch.models.layers import dense_init
 
 
@@ -101,12 +107,15 @@ def _route(params, x, cfg: MoEConfig):
     logits = (x @ params["router"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort: among equal probabilities the lower expert
-    # id goes first, as ``jax.lax.top_k`` orders them (``torch.topk`` does not)
-    top_w, top_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    # id goes first, as ``jax.lax.top_k`` orders them (``torch.topk`` does not);
+    # each token's row sorts on its own (under DTensor, on its rank)
+    top_w, top_ids = axis0_local(
+        lambda p: tuple(torch.sort(p, dim=-1, descending=True, stable=True)), 2, probs)
     top_w, top_ids = top_w[:, :K], top_ids[:, :K]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=0)
-    ce = torch.bincount(top_ids.reshape(-1), minlength=E).to(probs.dtype) / (T * K)
+    # bincount has no DTensor sharding rule: every rank counts all the ids
+    ce = torch.bincount(full_value(top_ids).reshape(-1), minlength=E).to(probs.dtype) / (T * K)
     return probs, top_w, top_ids, E * torch.sum(me * ce)
 
 
@@ -126,6 +135,7 @@ def _moe_dense_mix(params, x, cfg: MoEConfig):
     gate = gate.scatter(1, top_ids, top_w)
     h = F.silu(torch.einsum("td,edf->tef", x, params["w_gate"].to(dt))) * torch.einsum(
         "td,edf->tef", x, params["w_up"].to(dt))
+    h = constrain(h, None, "experts", None)
     out_e = torch.einsum("tef,efd->ted", h, params["w_down"].to(dt))
     out = torch.einsum("ted,te->td", out_e, gate.to(dt))
     if cfg.n_shared:
@@ -147,18 +157,33 @@ def moe_ffn(params, x, cfg: MoEConfig, dtype=None):
     _, top_w, top_ids, aux = _route(params, x, cfg)
     top_w = top_w.to(dt)
 
-    # group-local dispatch
-    xg, wg_, ig_ = x.reshape(G, Tg, d), top_w.reshape(G, Tg, K), top_ids.reshape(G, Tg, K)
-    groups = [_dispatch_group(xg[g], wg_[g], ig_[g], E, K, C) for g in range(G)]
-    buf = torch.stack([grp[0] for grp in groups])                 # [G, E, C, d]
+    # group-local dispatch; the input layout is pinned: groups over data,
+    # tokens within a group local
+    xg = constrain(x.reshape(G, Tg, d), "moe_groups", None, None)
+    wg_, ig_ = top_w.reshape(G, Tg, K), top_ids.reshape(G, Tg, K)
+
+    def dispatch(xg, wg_, ig_):
+        groups = [_dispatch_group(xg[g], wg_[g], ig_[g], E, K, C) for g in range(xg.shape[0])]
+        return tuple(torch.stack(f) for f in zip(*groups))
+
+    buf, *route = axis0_local(dispatch, 5, xg, wg_, ig_)
+    # buf [G, E, C, d]: G over data (the token -> expert all-to-all
+    # boundary), experts over model (EP)
+    buf = constrain(buf, "moe_groups", "experts", None, None)
 
     # grouped expert computation
     h = F.silu(torch.einsum("gecd,edf->gecf", buf, params["w_gate"].to(dt))) * torch.einsum(
         "gecd,edf->gecf", buf, params["w_up"].to(dt))
+    h = constrain(h, "moe_groups", "experts", None, None)
     out_buf = torch.einsum("gecf,efd->gecd", h, params["w_down"].to(dt)).reshape(G, E * C, d)
+    out_buf = constrain(out_buf, "moe_groups", None, None)
 
     # weighted scatter back (group-local)
-    out = torch.cat([_combine_group(out_buf[g], *groups[g][1:], Tg) for g in range(G)])
+    def combine(out_buf, *route):
+        return torch.stack([_combine_group(out_buf[g], *(r[g] for r in route), Tg)
+                            for g in range(out_buf.shape[0])])
+
+    out = axis0_local(combine, 1, out_buf, *route).reshape(T, d)
     if cfg.n_shared:
         out = _shared(params, x, out)
     return out.to(dt), aux

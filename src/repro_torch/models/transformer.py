@@ -23,9 +23,10 @@ generator's; ``params_from_numpy`` carries the reference's params over and
 ``params_to_numpy`` gives them back.
 
 Differences from the reference, each deliberate:
-- Layers run as a Python loop over the blocks.  ``remat``, ``unroll`` and
-  ``gather_weights`` select JAX mechanisms (rematerialisation, scan versus
-  unrolled tracing, ZeRO-3 gathers) and are not fields here.
+- Layers run as a Python loop over the blocks.  ``remat`` and ``unroll``
+  select JAX mechanisms (rematerialisation, scan versus unrolled tracing)
+  and are not fields here.  ``gather_weights`` is always on: each block's
+  weights go through ``gather_fsdp`` at use time, the identity with no mesh.
 - ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``:
   serving builds no autograd graph.
 - ``decode_step`` writes the new K/V into the cache tensors in place and
@@ -44,6 +45,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain, gather_fsdp
 from repro_torch.models.layers import (
     apply_rope,
     decode_attention,
@@ -204,6 +206,42 @@ class Block:
         self.__dict__.update(weights)
 
 
+# use-time logical axes of each per-layer weight (the leading "layers" dim
+# already unbound), consumed by the ZeRO-3 gather below
+_WEIGHT_AXES = {
+    "wq": ("fsdp", "heads", None),
+    "wk": ("fsdp", "kv_heads", None),
+    "wv": ("fsdp", "kv_heads", None),
+    "wo": ("heads", None, "fsdp"),
+    "w_gate": ("fsdp", "mlp"),
+    "w_up": ("fsdp", "mlp"),
+    "w_down": ("mlp", "fsdp"),
+}
+_MOE_WEIGHT_AXES = {
+    "w_gate": ("experts", "fsdp", None),
+    "w_up": ("experts", "fsdp", None),
+    "w_down": ("experts", None, "fsdp"),
+}
+
+
+def _gather_layer_weights(blk: Block) -> Block:
+    """The reference's per-layer ZeRO-3 all-gather of the fsdp-sharded
+    weights; with no mesh every weight is returned as it is."""
+    w = dict(blk.__dict__)
+    for k, ax in _WEIGHT_AXES.items():
+        if k in w:
+            w[k] = gather_fsdp(w[k], *ax)
+    if "moe" in w:
+        moe = dict(w["moe"])
+        for k, ax in _MOE_WEIGHT_AXES.items():
+            moe[k] = gather_fsdp(moe[k], *ax)
+        if "shared" in moe:
+            moe["shared"] = {k: gather_fsdp(v, *_WEIGHT_AXES[k])
+                             for k, v in moe["shared"].items()}
+        w["moe"] = moe
+    return Block(w.pop("index"), w)
+
+
 def _blocks(layers: Dict[str, Any], n_layers: int):
     """Every layer's ``Block``: one ``unbind`` per stacked leaf, so a pass
     over the layers makes one view op (and, under autograd, one backward
@@ -232,9 +270,6 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
-
-    def head(self) -> torch.Tensor:
-        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
 
 def init_lm(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
@@ -309,6 +344,7 @@ def layer_forward(cfg: LMConfig, blk, h, rot):
     """One block over a whole sequence: h [B, S, d] -> (h, k, v, aux);
     ``rot`` is the sequence's ``rope_tables``."""
     B, S, _ = h.shape
+    blk = _gather_layer_weights(blk)
     x = rms_norm(h, blk.ln1)
     q = _proj(x, blk.wq.to(x.dtype))
     k = _proj(x, blk.wk.to(x.dtype))
@@ -318,30 +354,46 @@ def layer_forward(cfg: LMConfig, blk, h, rot):
         k = rms_norm(k, blk.k_norm)
     q = apply_rope(q, *rot)
     k = apply_rope(k, *rot)
+    q = constrain(q, "batch", "seq", "heads", None)
+    # under sequence-parallel rules ("seq" -> model), K/V gather the full
+    # sequence (the SP all-gather); under TP rules this is a no-op
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     attn = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                            kv_chunk=cfg.kv_chunk)
     h = h + attn.reshape(B, S, -1) @ blk.wo.to(x.dtype).reshape(-1, cfg.d_model)
     ff, aux = _ffn(cfg, blk, rms_norm(h, blk.ln2))
-    return h + ff, k, v, aux
+    return constrain(h + ff, "batch", "seq", None), k, v, aux
 
 
-def _logits(model: LM, h):
+def _head(model: LM):
+    """The output projection [d, vocab]: the embedding's transpose when tied,
+    else ``lm_head`` (ZeRO-3 gathered)."""
+    if model.cfg.tie_embeddings:
+        return model.embed.T
+    return gather_fsdp(model.lm_head, "fsdp", "vocab")
+
+
+def _logits(model: LM, h, *axes):
+    """Final norm and head; ``axes``, when given, are the logits' logical
+    axes."""
     h = rms_norm(h, model.final_ln)
-    return (h @ model.head().to(h.dtype)).to(torch.float32)
+    logits = h @ _head(model).to(h.dtype)
+    return (constrain(logits, *axes) if axes else logits).to(torch.float32)
 
 
 def forward(model: LM, tokens):
     """tokens [B, S] -> (logits [B, S, vocab] float32, summed MoE aux loss)."""
     cfg = model.cfg
     B, S = tokens.shape
-    h = model.embed[tokens].to(cfg.dtype)
+    h = constrain(model.embed[tokens].to(cfg.dtype), "batch", "seq", None)
     rot = rope_tables(torch.arange(S, device=h.device).expand(B, S), cfg.head_dim,
                       cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in model.layers:
         h, _, _, a = layer_forward(cfg, blk, h, rot)
         aux = aux + a
-    return _logits(model, h), aux
+    return _logits(model, h, "batch", "seq", "vocab"), aux
 
 
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], aux_weight: float = 0.01):
@@ -375,6 +427,7 @@ def layer_decode(cfg: LMConfig, blk, h, kc, vc, slot, rot):
     batch, so its capacity follows B."""
     rows, cache_len, attend = slot
     B = h.shape[0]
+    blk = _gather_layer_weights(blk)
     x = rms_norm(h, blk.ln1)
     q = _proj(x, blk.wq.to(x.dtype))
     k = _proj(x, blk.wk.to(x.dtype))
@@ -409,7 +462,7 @@ def decode_step(model: LM, cache, tokens, cache_len):
     h = model.embed[tokens].to(cfg.dtype)      # [B, d]
     for i, blk in enumerate(model.layers):
         h = layer_decode(cfg, blk, h, cache["k"][i], cache["v"][i], slot, rot)
-    return _logits(model, h), cache
+    return _logits(model, h, "batch", "vocab"), cache
 
 
 @torch.inference_mode()
@@ -422,14 +475,15 @@ def prefill(model: LM, tokens, max_seq: Optional[int] = None):
     cfg = model.cfg
     B, S = tokens.shape
     max_seq = max_seq or S
-    h = model.embed[tokens].to(cfg.dtype)
+    h = constrain(model.embed[tokens].to(cfg.dtype), "batch", "seq", None)
     rot = rope_tables(torch.arange(S, device=h.device).expand(B, S), cfg.head_dim,
                       cfg.rope_theta)
     cache = init_cache(cfg, B, max_seq, device=h.device)
     for i, blk in enumerate(model.layers):
         h, k, v, _ = layer_forward(cfg, blk, h, rot)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        # the cache keeps the decode layout (kv_seq over model)
+        cache["k"][i, :, :S] = constrain(k, "batch", "kv_seq", "kv_heads", None)
+        cache["v"][i, :, :S] = constrain(v, "batch", "kv_seq", "kv_heads", None)
     return _logits(model, h[:, -1]), cache
 
 

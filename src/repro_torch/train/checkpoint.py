@@ -16,6 +16,14 @@ of 2-byte voids) under manifest dtype ``"bfloat16"``.  The port writes their
 back as ``torch.bfloat16``.  An int leaf (the train state's host ``step``)
 is written as an int32 scalar, as the reference's int32 step array is, and
 read back as an int.
+
+Sharded trees: a DTensor leaf is saved as its full value, in the same
+format, so the files are byte-identical to an unsharded save.  Every rank
+takes part in the gather (``full_tensor()`` is a collective) and rank 0
+writes; a blocking save ends with a barrier, so every rank may read the
+checkpoint when it returns.  ``restore(..., shardings=)`` places each leaf
+with its ``(mesh, placements)`` (``distributed.sharding.spec_tree_sharding``),
+so a checkpoint restores onto another mesh than the one that saved it.
 """
 from __future__ import annotations
 
@@ -29,13 +37,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import full_value, is_dtensor
 from repro_torch.tree import tree_items, tree_unflatten
 
 
 def _host(leaf):
-    """(numpy array, manifest dtype) of one leaf, copied off its device."""
+    """(numpy array, manifest dtype) of one leaf, copied off its device (a
+    DTensor's full value)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = full_value(leaf.detach()).cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.uint16).numpy().copy(), "bfloat16"
         arr = t.numpy().copy()
@@ -61,15 +71,24 @@ class CheckpointManager:
         update its tensors in place at once), then writes them, in a thread
         when asynchronous."""
         self.wait()  # serialize with any in-flight async save
-        if step in self.all_steps():
-            return  # already checkpointed (e.g. periodic + final collide)
-        host = {key: _host(leaf) for key, leaf in tree_items(tree)}
-        if blocking is False or (blocking is None and self.async_save):
-            self._thread = threading.Thread(target=self._write, args=(step, host),
-                                            daemon=True)
-            self._thread.start()
-        else:
-            self._write(step, host)
+        items = list(tree_items(tree))
+        sharded = any(is_dtensor(leaf) for _, leaf in items)
+        # every rank gathers a sharded tree (a collective); rank 0 alone writes
+        host = {key: _host(leaf) for key, leaf in items} if sharded else None
+        in_thread = blocking is False or (blocking is None and self.async_save)
+        # a step already checkpointed (e.g. periodic + final collide) is skipped
+        if (not sharded or torch.distributed.get_rank() == 0) \
+                and step not in self.all_steps():
+            if host is None:
+                host = {key: _host(leaf) for key, leaf in items}
+            if in_thread:
+                self._thread = threading.Thread(target=self._write, args=(step, host),
+                                                daemon=True)
+                self._thread.start()
+            else:
+                self._write(step, host)
+        if sharded and not in_thread:
+            torch.distributed.barrier()
 
     def _write(self, step: int, host):
         final = os.path.join(self.directory, f"step_{step:010d}")
@@ -113,17 +132,21 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: Optional[int] = None, device=None):
+    def restore(self, template, step: Optional[int] = None, device=None, shardings=None):
         """Restore into the structure of ``template`` (values ignored): a
         tensor leaf comes back as a tensor on ``device`` (by default the
         template leaf's device) in the file's dtype, an int leaf as an int.
-        Returns (tree, step)."""
+        ``shardings``, a tree of ``(mesh, placements)`` (or ``None``) leaves
+        in the template's structure, makes each tensor a DTensor placed so;
+        every rank of the mesh must call it.  Returns (tree, step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         path = os.path.join(self.directory, f"step_{step:010d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
+
+        placed = dict(tree_items(shardings)) if shardings is not None else {}
 
         def load(key, leaf):
             meta = manifest["leaves"][key]
@@ -132,10 +155,18 @@ class CheckpointManager:
                 return int(arr)
             dev = device if device is not None else getattr(leaf, "device", "cpu")
             if meta["dtype"] == "bfloat16":
-                return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(dev)
-            return torch.from_numpy(arr).to(dev)
+                t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(dev)
+            else:
+                t = torch.from_numpy(arr).to(dev)
+            if placed.get(key) is None:
+                return t
+            from torch.distributed.tensor import distribute_tensor
+
+            mesh, pl = placed[key]
+            return distribute_tensor(t, mesh, pl)
 
         return tree_unflatten(template, [load(k, l) for k, l in tree_items(template)]), step
+
 
 
 __all__ = ["CheckpointManager"]

@@ -10,8 +10,11 @@ marks a straggler; the policy says what to do ("flag", "rebalance",
 
 ``build_mesh_from_plan`` returns a ``torch.distributed`` ``DeviceMesh`` over
 the whole process group (``distributed.query_shard.make_mesh``), so the
-plan's device count must be the world size; the re-mesh of a sharded
-training job waits for ROADMAP Queue 1 item 16.
+plan's device count must be the world size.  That is the re-mesh after a
+failure: the survivors start a new process group of the plan's size, build
+its mesh, and restore the last checkpoint onto it with
+``CheckpointManager.restore(..., shardings=)`` (a 4x2 job resumes as a 2x2
+job of 4 ranks from the same files).
 """
 from __future__ import annotations
 

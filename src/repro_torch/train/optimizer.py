@@ -12,14 +12,21 @@ Differences from the reference, each deliberate:
 - ``step`` is a host int.  The schedule and the bias corrections are
   evaluated on float32 0-d tensors, as the reference evaluates them on its
   traced float32 step.
+
+Sharded parameters are DTensors.  Their state is built with the placements
+``state_axes`` gives (a moment as its parameter; Adafactor's row and column
+moments as the parameter less the reduced dimension), and a new state that
+comes back ``Partial`` or otherwise placed (a mean over a sharded dimension)
+is redistributed before it is stored.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, placed_like
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -67,6 +74,26 @@ def _rate(lr):
     return lr if callable(lr) else (lambda _: lr)
 
 
+def state_zeros(p, dtype=torch.float32, drop: Optional[int] = None):
+    """Zeros of ``p``'s shape (less dimension ``drop``) on its device; for a
+    DTensor ``p`` a DTensor with its placements, a shard of the dropped
+    dimension replicated and later dimensions shifted down."""
+    shape = tuple(p.shape)
+    if drop is not None:
+        drop %= p.ndim
+        shape = shape[:drop] + shape[drop + 1:]
+    if not is_dtensor(p):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard, zeros
+
+    pl = []
+    for q in p.placements:
+        if isinstance(q, Shard) and drop is not None and q.dim >= drop:
+            q = Replicate() if q.dim == drop else Shard(q.dim - 1)
+        pl.append(q)
+    return zeros(shape, dtype=dtype, device_mesh=p.device_mesh, placements=pl)
+
+
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
@@ -76,7 +103,7 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     lr_fn = _rate(lr)
 
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+        zeros = lambda p: state_zeros(p, state_dtype)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     def update(grads, state, params, step):
@@ -92,9 +119,9 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             mh = m_new / bc1
             vh = v_new / bc2
             delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.float()
-            p.copy_((p.float() - lr_t * delta).to(p.dtype))
-            m.copy_(m_new.to(state_dtype))
-            v.copy_(v_new.to(state_dtype))
+            p.copy_(placed_like((p.float() - lr_t * delta).to(p.dtype), p))
+            m.copy_(placed_like(m_new.to(state_dtype), m))
+            v.copy_(placed_like(v_new.to(state_dtype), v))
             return p
 
         with torch.no_grad():
@@ -118,11 +145,10 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30, clip_threshold: float 
 
     def init(params):
         def one(p):
-            f32 = dict(dtype=torch.float32, device=p.device)
             if _factored(p.shape, min_dim_size_to_factor):
-                return {"vr": torch.zeros(p.shape[:-1], **f32),                 # row
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}  # col
-            return {"v": torch.zeros(p.shape, **f32)}
+                return {"vr": state_zeros(p, drop=-1),     # row
+                        "vc": state_zeros(p, drop=-2)}     # col
+            return {"v": state_zeros(p)}
 
         return tree_map(one, params)
 
@@ -140,16 +166,16 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30, clip_threshold: float 
                 denom = vr.mean(dim=-1, keepdim=True)
                 u = g32 * torch.rsqrt(vr / torch.clamp(denom, min=eps))[..., None] \
                     * torch.rsqrt(vc)[..., None, :]
-                s["vr"].copy_(vr)
-                s["vc"].copy_(vc)
+                s["vr"].copy_(placed_like(vr, s["vr"]))
+                s["vc"].copy_(placed_like(vc, s["vc"]))
             else:
                 v = beta2 * s["v"] + one_minus * g2
                 u = g32 * torch.rsqrt(v)
-                s["v"].copy_(v)
+                s["v"].copy_(placed_like(v, s["v"]))
             rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
             delta = u + weight_decay * p.float()
-            p.copy_((p.float() - lr_t * delta).to(p.dtype))
+            p.copy_(placed_like((p.float() - lr_t * delta).to(p.dtype), p))
             return p
 
         with torch.no_grad():
@@ -163,16 +189,15 @@ def sgd(lr, momentum: float = 0.9) -> Optimizer:
     lr_fn = _rate(lr)
 
     def init(params):
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                        params)
+        return tree_map(state_zeros, params)
 
     def update(grads, state, params, step):
         lr_t = lr_fn(step)
 
         def upd(p, g, m):
             m_new = momentum * m + g.float()
-            p.copy_((p.float() - lr_t * m_new).to(p.dtype))
-            m.copy_(m_new)
+            p.copy_(placed_like((p.float() - lr_t * m_new).to(p.dtype), p))
+            m.copy_(placed_like(m_new, m))
             return p
 
         with torch.no_grad():
@@ -203,5 +228,5 @@ def state_axes(kind: str, param_axes_tree, param_shapes_tree):
     raise ValueError(kind)
 
 
-__all__ = ["Optimizer", "global_norm", "clip_by_global_norm", "warmup_cosine", "adamw",
+__all__ = ["Optimizer", "state_zeros", "global_norm", "clip_by_global_norm", "warmup_cosine", "adamw",
            "adafactor", "sgd", "make_optimizer", "state_axes"]

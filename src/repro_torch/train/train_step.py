@@ -9,6 +9,11 @@ With microbatches the gradients accumulate in float32 zeros, the loss is
 the mean over microbatches and the metrics are the last microbatch's, as
 in the reference.  ``state["step"]`` is a host int.
 
+Sharded parameters are DTensors (``distributed.sharding.distribute_tree``)
+and the step runs under ``use_mesh``: the gradients come back with their
+parameters' placements, and the metrics (loss, grad norm) reach the caller
+as plain tensors, read with ``full_tensor()`` on every rank.
+
 Not ported: ``jit_train_step``, which jit-compiles the step with shardings
 and donated buffers (JAX mechanisms; PyTorch runs the step eagerly, and
 the in-place updates stand in for donation).
@@ -25,7 +30,8 @@ from repro_torch.distributed.compression import (
     compress_gradients,
     init_error_feedback,
 )
-from repro_torch.train.optimizer import Optimizer, clip_by_global_norm
+from repro_torch.distributed.sharding import full_value, placed_like
+from repro_torch.train.optimizer import Optimizer, state_zeros, clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -44,7 +50,10 @@ def init_train_state(params, optimizer: Optimizer, tcfg: TrainConfig) -> Dict[st
 
 
 def _detached(metrics):
-    return tree_map(lambda m: m.detach() if isinstance(m, torch.Tensor) else m, metrics)
+    """The metrics off the graph; a DTensor's whole value (a collective every
+    rank takes part in)."""
+    return tree_map(lambda m: full_value(m.detach()) if isinstance(m, torch.Tensor) else m,
+                    metrics)
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
@@ -59,16 +68,16 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                 p.requires_grad_(True)
         loss, metrics = loss_fn(params, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return loss.detach(), _detached(metrics), tree_unflatten(params, grads)
+        grads = [torch.zeros_like(p) if g is None else placed_like(g, p)
+                 for p, g in zip(leaves, grads)]
+        return full_value(loss.detach()), _detached(metrics), tree_unflatten(params, grads)
 
     def compute_grads(params, batch):
         n = tcfg.microbatches
         if n <= 1:
             return grads_of(params, batch)
         split = tree_map(lambda x: x.reshape(n, x.shape[0] // n, *x.shape[1:]), batch)
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                       params)
+        acc = tree_map(state_zeros, params)
         loss_sum = 0.0
         for i in range(n):
             loss, metrics, grads = grads_of(params, tree_map(lambda x: x[i], split))
@@ -86,7 +95,7 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         new_state = {"opt": new_opt, "step": state["step"] + 1}
         if compressed:
             new_state["err_fb"] = new_err
-        return params, new_state, {"loss": loss, "grad_norm": gnorm, **metrics}
+        return params, new_state, {"loss": loss, "grad_norm": full_value(gnorm), **metrics}
 
     return step
 

@@ -303,3 +303,196 @@ def serving_ranks(rank, meshes, boundary_meshes, bucketed_mesh=None, tiled_mesh=
     digests = {k: digest([a[0] for a in v]) for k, v in out.items()
                if k[0] != "refusals"}
     return (out if rank == 0 else None), digests
+
+
+# ---------------------------------------------------------------------------
+# sharded training (tests/test_torch_sharded_train.py)
+# ---------------------------------------------------------------------------
+
+ELASTIC_ARCH = "smollm-135m"
+ELASTIC_LR = 3e-3
+ELASTIC_BATCH = (8, 32)
+
+
+def elastic_batches(vocab, skip=0):
+    """The reference e2e test's batches (MarkovCorpus seed 0, stream seed 1),
+    past the first ``skip``."""
+    from repro_torch.data.tokens import MarkovCorpus
+
+    it = MarkovCorpus(vocab=vocab, seed=0).batches(*ELASTIC_BATCH, seed=1)
+    for _ in range(skip):
+        next(it)
+    return it
+
+
+def _lm_trainer(fam, model, mesh):
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+
+    opt = make_optimizer("adamw", ELASTIC_LR)
+    step = make_train_step(lambda p, b: tf.loss_fn(model, b), opt, TrainConfig())
+
+    def run(params, state, batch):
+        from repro_torch.distributed.sharding import use_mesh
+
+        with use_mesh(mesh, rules=fam.rules_override):
+            return step(params, state, batch)
+
+    return opt, run, init_train_state(model.params, opt, TrainConfig())
+
+
+def _steps(run, params, state, batches, n):
+    losses, norms = [], []
+    for _ in range(n):
+        b = {k: torch.as_tensor(v) for k, v in next(batches).items()}
+        params, state, m = run(params, state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return params, state, losses, norms
+
+
+def _full_params(params):
+    """Every rank gathers (a collective); the numpy tree of the whole values."""
+    from repro_torch.distributed.sharding import full_value
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda p: _np(full_value(p.detach())), params)
+
+
+def elastic_first(rank, carried, ckpt, mesh_shape, n_steps):
+    """Train the carried weights ``n_steps`` on ``mesh_shape`` and save the
+    sharded params and state at step ``n_steps``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    fam = get_arch(ELASTIC_ARCH)
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    model = fam.shard(tf.params_from_numpy(carried, fam.smoke_cfg, "cpu"), mesh)
+    _, run, state = _lm_trainer(fam, model, mesh)
+    placements = {k: tuple(map(str, p.placements))
+                  for k, p in (("wq", model.params["layers"]["wq"]),
+                               ("embed", model.params["embed"]),
+                               ("m/wq", state["opt"]["m"]["layers"]["wq"]))}
+    params, state, losses, norms = _steps(run, model.params, state,
+                                          elastic_batches(fam.smoke_cfg.vocab), n_steps)
+    CheckpointManager(ckpt).save(n_steps, {"params": params, "state": state})
+    return {"losses": losses, "norms": norms, "params": _full_params(params),
+            "placements": placements}
+
+
+def elastic_resume(rank, ckpt, n_surviving, model_parallel, n_steps):
+    """Plan the re-mesh for the survivors, restore onto it and go on."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import spec_tree_sharding
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.elastic import build_mesh_from_plan, plan_remesh
+    from repro_torch.train.optimizer import state_axes
+
+    fam = get_arch(ELASTIC_ARCH)
+    cfg = fam.smoke_cfg
+    plan = plan_remesh(n_surviving, model_parallel=model_parallel)
+    mesh = build_mesh_from_plan(plan, device="cpu")
+    axes, shapes = tf.param_axes(cfg), tf.param_shapes(cfg)
+    template = tf.init_lm(cfg, torch.Generator().manual_seed(1), "cpu")
+    _, _, tmpl_state = _lm_trainer(fam, template, None)
+    shardings = {"params": spec_tree_sharding(axes, shapes, mesh),
+                 "state": {"opt": spec_tree_sharding(state_axes("adamw", axes, shapes),
+                                                     {"m": shapes, "v": shapes}, mesh),
+                           "step": None}}
+    restored, step0 = CheckpointManager(ckpt).restore(
+        {"params": template.params, "state": tmpl_state}, shardings=shardings)
+    model = tf.LM(cfg, restored["params"])
+    _, run, _ = _lm_trainer(fam, model, mesh)
+    state = restored["state"]
+    wq = model.params["layers"]["wq"]
+    params, state, losses, norms = _steps(run, model.params, state,
+                                          elastic_batches(cfg.vocab, skip=step0), n_steps)
+    return {"plan": plan.note, "step0": step0, "losses": losses, "norms": norms,
+            "mesh": tuple(mesh.shape), "wq_placements": tuple(map(str, wq.placements)),
+            "state_step": state["step"], "params": _full_params(params)}
+
+
+SHARDED_STEP_CASES = ("qwen3-moe-30b-a3b", "mistral-large-123b", "gcn-cora", "mind")
+
+
+def _case(arch, mesh):
+    """(build, optimizer, batch, rules) of one case's reduced config: build(
+    mesh) -> (params, loss(params, batch)) from seed 0, the params placed as
+    DTensors by their logical axes when ``mesh`` is given."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.models import gnn, mind
+    from repro_torch.models import transformer as tf
+
+    fam = get_arch(arch)
+    rng = np.random.default_rng(0)
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    if fam.family == "lm":
+        cfg = fam.mesh_cfg(fam.smoke_cfg, mesh)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 32)))
+
+        def build(m):
+            model = tf.init_lm(cfg, gen(), "cpu")
+            if m is not None:
+                model = fam.shard(model, m)
+            return model.params, lambda p, b: tf.loss_fn(model, b)
+
+        return build, fam.optimizer(), {"tokens": toks, "labels": toks}, fam.rules_override
+    if fam.family == "gnn":
+        cfg = fam.smoke_cfg()
+        N, E = 40, 160
+        batch = {"x": torch.as_tensor(rng.standard_normal((N, 6)), dtype=torch.float32),
+                 "src": torch.as_tensor(rng.integers(0, N, E)),
+                 "dst": torch.as_tensor(rng.integers(0, N, E)),
+                 "labels": torch.as_tensor(rng.integers(0, 3, N))}
+        init, axes = (lambda: gnn.init_gnn(cfg, gen(), "cpu")), gnn.gnn_param_axes
+        loss = lambda p, b: (gnn.gnn_loss(p, b, cfg), {})  # noqa: E731
+        opt = fam.train_objects("full_graph_sm")[0]
+    else:
+        cfg = fam.smoke_cfg()
+        batch = {"hist": torch.as_tensor(rng.integers(0, 500, (4, 12))),
+                 "target": torch.as_tensor(rng.integers(1, 500, (4,))),
+                 "negatives": torch.as_tensor(rng.integers(1, 500, (4, 16)))}
+        init, axes = (lambda: mind.init_mind(cfg, gen(), "cpu")), mind.mind_param_axes
+        loss = lambda p, b: (mind.train_loss(p, b, cfg), {})  # noqa: E731
+        opt = fam.train_objects(cfg)[0]
+
+    def build(m):
+        params = init()
+        return (params if m is None else distribute_tree(params, axes(params), m)), loss
+
+    return build, opt, batch, None
+
+
+def sharded_step_ranks(rank, mesh_shape, cases):
+    """One train step of each case, unsharded and on ``mesh_shape``, from the
+    same weights and batch: both metrics, both parameter lists and the
+    sharded leaves' placements."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    out = {}
+    for arch in cases:
+        build, opt, batch, rules = _case(arch, mesh)
+        got = []
+        for m in (None, mesh):
+            params, loss = build(m)
+            step = make_train_step(loss, opt, TrainConfig())
+            state = init_train_state(params, opt, TrainConfig())
+            with use_mesh(m, rules=rules):
+                params, state, metrics = step(params, state, dict(batch))
+            got.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                        [_np(p) for p in tree_leaves(_full_params(params))],
+                        sorted({str(tuple(map(str, p.placements)))
+                                for p in tree_leaves(params) if m is not None})))
+        (l0, g0, p0, _), (l1, g1, p1, pl) = got
+        out[arch] = {"loss": (l0, l1), "grad_norm": (g0, g1), "params": (p0, p1),
+                     "placements": pl}
+    return out

@@ -60,7 +60,7 @@ from repro_torch.train.optimizer import (
     warmup_cosine,
 )
 from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
-from repro_torch.tree import tree_items, tree_map
+from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 FN_TOL = dict(rtol=1e-6, atol=1e-7)
 LR = 3e-4  # the families' default rate
@@ -551,3 +551,102 @@ def test_trainer_resume_sees_the_uninterrupted_batches(tmp_path):
                                   "--compression", "int8"])
     assert b == a[4:]
     assert CheckpointManager(str(tmp_path / "b")).all_steps() == [4, 8]
+
+
+# ---------------------------------------------------------------------------
+# sharded training at world size 1 (multi-rank: test_torch_sharded_train.py)
+# ---------------------------------------------------------------------------
+
+def _one_rank_mesh():
+    from repro_torch.distributed import make_mesh
+
+    return make_mesh((1, 1), ("data", "model"), device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adafactor", "sgd"])
+def test_sharded_state_takes_the_state_axes_placements(kind):
+    """The optimizer state of DTensor parameters is built with the
+    placements ``state_axes`` gives (Adafactor's row and column moments: the
+    parameter's less the reduced dimension)."""
+    from repro_torch.distributed.sharding import distribute_tree, spec_tree_sharding
+
+    cfg = ttf.LMConfig(dtype=torch.float32, **STACKED)
+    model = ttf.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    with test_torch_common.one_rank_group():
+        mesh = _one_rank_mesh()
+        axes = ttf.param_axes(cfg)
+        state = make_optimizer(kind, LR).init(distribute_tree(model.params, axes, mesh))
+        want = spec_tree_sharding(state_axes(kind, axes, ttf.param_shapes(cfg)), state, mesh)
+        pairs = list(zip(tree_items(state), tree_items(want)))
+        assert pairs
+        for (key, leaf), (_, (m, pl)) in pairs:
+            assert m is mesh and tuple(leaf.placements) == tuple(pl), key
+        if kind == "adafactor":
+            assert {k.rsplit("/", 1)[-1] for k, _ in tree_items(state)} >= {"vr", "vc"}
+
+
+@pytest.mark.parametrize("kind,compression,micro", [
+    ("adamw", "none", 1), ("adafactor", "none", 1), ("sgd", "none", 1),
+    ("adafactor", "int8", 1), ("adamw", "topk", 1), ("adamw", "none", 2),
+])
+def test_sharded_step_at_world_size_one_equals_the_unsharded_step(kind, compression, micro):
+    """Two steps of the stacked configuration with DTensor parameters and
+    state on a (1, 1) mesh against the same steps on plain tensors: the step,
+    the clip, each optimizer's in-place update, compression and microbatches
+    run on DTensor leaves and give the plain step's numbers bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import distribute_tree, use_mesh
+
+    cfg = ttf.LMConfig(dtype=torch.float32, **STACKED)
+    tc = TrainConfig(microbatches=micro, compression=CompressionConfig(kind=compression))
+    batches = _batches(cfg.vocab, 2)
+    out = []
+    with test_torch_common.one_rank_group():
+        mesh = _one_rank_mesh()
+        for sharded in (False, True):
+            model = ttf.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+            if sharded:
+                model = ttf.LM(cfg, distribute_tree(model.params, ttf.param_axes(cfg), mesh))
+            opt = make_optimizer(kind, LR)
+            step = make_train_step(lambda p, b: ttf.loss_fn(model, b), opt, tc)
+            params, state, metrics = model.params, init_train_state(model.params, opt, tc), []
+            for b in batches:
+                with use_mesh(mesh if sharded else None):
+                    params, state, m = step(params, state,
+                                            {k: torch.as_tensor(v) for k, v in b.items()})
+                # the metrics reach the caller as plain tensors
+                assert not any(isinstance(v, DTensor) for v in m.values())
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            full = [_np(p.full_tensor() if sharded else p) for p in tree_leaves(params)]
+            out.append((metrics, full, state["step"]))
+    (m0, p0, s0), (m1, p1, s1) = out
+    assert m1 == m0 and s1 == s0 == 2
+    assert all(np.array_equal(a, b) for a, b in zip(p0, p1))
+
+
+def test_checkpoint_restore_with_shardings(tmp_path):
+    """A DTensor tree saves the same bytes as its plain values, and
+    ``restore(shardings=)`` places every tensor leaf as asked (int leaves
+    stay ints), onto other placements than the saved ones."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    plain = {"w": torch.arange(12.0).reshape(4, 3), "b": torch.ones(3, dtype=torch.bfloat16),
+             "n": 7}
+    with test_torch_common.one_rank_group():
+        mesh = _one_rank_mesh()
+        tree = {"w": distribute_tensor(plain["w"], mesh, [Shard(0), Shard(1)]),
+                "b": distribute_tensor(plain["b"], mesh, [Replicate(), Shard(0)]), "n": 7}
+        CheckpointManager(str(tmp_path / "sharded")).save(3, tree)
+        CheckpointManager(str(tmp_path / "plain")).save(3, plain)
+        shardings = {"w": (mesh, [Replicate(), Shard(1)]), "b": None, "n": None}
+        got, step = CheckpointManager(str(tmp_path / "sharded")).restore(
+            plain, shardings=shardings)
+    assert step == 3 and got["n"] == 7
+    assert isinstance(got["w"], DTensor) and got["w"].placements == (Replicate(), Shard(1))
+    assert torch.equal(got["w"].to_local(), plain["w"])
+    assert not isinstance(got["b"], DTensor) and torch.equal(got["b"], plain["b"])
+    d1, d2 = (tmp_path / k / "step_0000000003" for k in ("sharded", "plain"))
+    assert sorted(os.listdir(d1)) == sorted(os.listdir(d2))
+    for name in os.listdir(d1):
+        assert (d1 / name).read_bytes() == (d2 / name).read_bytes(), name
