@@ -26,9 +26,13 @@
    sliding windows, a cold start and six advances on a tiled scan plan,
    every row against cold sweeps, K1 and K3 launched inside each advance)
    and an index-ring (transit) and a hybrid-ring (power-law) stream of
-   eight advances, each ring against a cold build; profiles of one EA and
-   one PageRank query and of one advance of each stream.  The kernels'
-   launch counts are read around all of it.
+   eight advances, each ring against a cold build; the tiny-ring cold gate
+   on power-law (an index chain of at most ``TINY_BUDGET_RING`` ring slots,
+   six advances served with ``tiny_budget_gate=True``, cold and
+   stateless, in turns with the fused ring advances: rows bit-identical,
+   ms per advance of each); profiles of one EA and one PageRank query and
+   of one advance of each stream.  The kernels' launch counts are read
+   around all of it.
 5. The frontier ladder, its launch counts read around it: EA over the
    transit and power-law wide windows from two sources, on scan/
    pallas_tiled and index/xla_segment at ladder caps 0 (dense), 64 and
@@ -148,7 +152,15 @@
    contact tracing, the distributed example under ``torchrun`` (one NCCL
    rank) against 8 gloo ranks, LM serving (K4 must launch), the trainer's
    200 steps and 5 steps from CPU-drawn weights against the CPU's.
-16. Prints the kernel table as one JSON line (each kernel's launches on
+16. The dry run: ``python -m repro_torch.launch.dryrun --all --mesh both``
+   in a subprocess (its fake process groups of 256 and 512 ranks must not
+   meet this process's NCCL groups), with the card's memory as
+   ``hbm_bytes``: one line per record (status, per-device argument and
+   peak bytes, fits, FLOPs and wire bytes per device, seconds) and the
+   phase's wall time; it fails unless every one of the 92 records is
+   ``ok``, or ``skipped`` where the cell is skipped (the reference's
+   statuses).  ``--dryrun-out DIR`` keeps the records.
+17. Prints the kernel table as one JSON line (each kernel's launches on
    the counted paths of items 4–7, 9, 10 and 15, the ladder phase's, the
    history/daemon phase's, the distributed phase's, the MoE serving
    phase's, the training phase's, the Kairos, the models, the sharded
@@ -337,6 +349,9 @@ def parse_args(argv=None):
                         "K2), DIR/segment_spmm.cu (K3) and DIR/decode_attention.cu (K4), "
                         "whichever are present: their sources before the redesign (C "
                         "entry points as PARENT_SIGNATURES), in turns with these")
+    p.add_argument("--dryrun-out", metavar="DIR",
+                   help="keep the dry run's records in DIR (a temporary directory "
+                        "otherwise)")
     return p.parse_args(argv)
 
 
@@ -1449,6 +1464,78 @@ def ring_stream(torch, np, name, g, tger, fields, access):
                                [r["ms"] for r in records]))
     records[-1]["fused"] = fused
     return records
+
+
+TINY_ADVANCES = 6
+
+
+def tiny_gate_stream(torch, np, name, g, tger, fields):
+    """The tiny-ring cold gate: EA from a source active at the end of the
+    stream (in the sparsest tenth of the start times) over two sliding
+    windows narrow enough that the index ring holds
+    at most ``TINY_BUDGET_RING`` slots, TINY_ADVANCES one-stride advances
+    served gated (``tiny_budget_gate=True``: cold under its plan, no state)
+    and ungated (the fused ring advance of a carried state), in turns.
+    Every advance's rows are bit-identical between the two and the gated
+    state is None; ms per advance of each (the crossover)."""
+    from repro_torch.core import plan_query
+    from repro_torch.serve import dispatch_log, sliding_windows, sweep_incremental
+    from repro_torch.serve.window_sweep import TINY_BUDGET_RING
+
+    src_np, _, ts_np, _ = fields
+    # the stream ends in the sparsest tenth of the start times (power_law's
+    # early range), at a width of about 16 edges
+    t_hi = int(np.quantile(ts_np, 0.1))
+    early = ts_np < t_hi
+    width = max(1, (t_hi - int(ts_np.min())) * 16 // max(int(early.sum()), 1))
+    while True:
+        plan = plan_query(g, tger, windows=sliding_windows(t_hi, width, max(width // 2, 1), 2),
+                          access="index")
+        if plan.method == "index" and (plan.ring_capacity or plan.budget) <= TINY_BUDGET_RING:
+            break
+        if width == 1:
+            raise AssertionError(f"[{name}] no window is narrow enough for a ring of at "
+                                 f"most {TINY_BUDGET_RING} slots")
+        width //= 2
+    stride = max(width // 2, 1)
+    source = int(src_np[early][np.argmax(ts_np[early])])
+    base = t_hi - (TINY_ADVANCES + 1) * stride
+    _, state = sweep_incremental(g, source, sliding_windows(base, width, stride, 2), tger,
+                                 access="index")
+    sync = torch.cuda.synchronize
+    ms = {"gated": [], "ungated": []}
+    for step in range(1, TINY_ADVANCES + 1):
+        wins = sliding_windows(base + step * stride, width, stride, 2)
+        out = {}
+        for kind in (("gated", "ungated") if step % 2 else ("ungated", "gated")):
+            sync()
+            t0 = time.perf_counter()
+            with dispatch_log() as tags:
+                if kind == "gated":
+                    res, st = sweep_incremental(g, source, wins, tger, access="index",
+                                                tiny_budget_gate=True)
+                else:
+                    res, state = sweep_incremental(g, source, wins, tger, access="index",
+                                                   state=state)
+            sync()
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            out[kind] = (res, list(tags))
+        if st is not None or out["gated"][1] != ["gate:tiny-budget", "cold:gated"]:
+            raise AssertionError(f"[{name}] tiny gate advance {step}: state {st}, "
+                                 f"tags {out['gated'][1]}")
+        if not torch.equal(out["gated"][0], out["ungated"][0]):
+            raise AssertionError(f"[{name}] tiny gate advance {step}: gated rows differ "
+                                 f"from the ungated advance's")
+        log(f"[{name}] tiny gate advance {step}: gated {ms['gated'][-1]:.3f} ms "
+            f"{out['gated'][1]}, ungated {ms['ungated'][-1]:.3f} ms {out['ungated'][1]} "
+            f"(ring of {state.capacity} slots); rows bit-identical")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"[{name}] tiny gate: median ms per advance gated {med['gated']:.3f}, ungated "
+        f"{med['ungated']:.3f} (window width {width}, ring of {state.capacity} slots, "
+        f"TINY_BUDGET_RING {TINY_BUDGET_RING})")
+    return [dict(graph=name, algorithm="tiny_gate", width=width, capacity=state.capacity,
+                 gated_ms=ms["gated"], ungated_ms=ms["ungated"],
+                 gated_median_ms=med["gated"], ungated_median_ms=med["ungated"])]
 
 
 # the frontier ladder phase: EA at these caps (0 = dense) in these plan
@@ -4727,6 +4814,64 @@ def mind_path(torch, np, seed, device):
     return [rec_serve, rec_ret, rec_train]
 
 
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_BUDGET_S = 240
+
+
+def dryrun_path(out_dir=None) -> list:
+    """The dry run of every cell on both production meshes, in a subprocess
+    (its fake process groups must not meet this process's NCCL groups);
+    the subprocess reads the card's memory for ``fits`` and runs a cell per
+    core at once.  Logs one line per record and the wall time; fails unless each of the records is ``ok``,
+    or ``skipped`` where its cell is skipped.  Returns one summary record."""
+    import tempfile
+
+    from repro_torch.configs import get_arch, list_archs
+
+    expected = {(a, s, m): "skipped" if c.skip else "ok" for a in list_archs()
+                for s, c in get_arch(a).cells.items() for m in ("single", "multi")}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = out_dir or tmp
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                              "--mesh", "both", "--out", str(out_dir)], env=env,
+                             capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        recs = {}
+        for key in expected:
+            path = Path(out_dir) / ("__".join(key) + ".json")
+            if path.exists():
+                recs[key] = json.loads(path.read_text())
+    for key in sorted(expected):
+        r = recs.get(key, {"status": "missing"})
+        line = f"dryrun {' x '.join(key)}: {r['status']}"
+        if r["status"] == "ok":
+            mem = r["memory"]
+            line += (f", args {mem['argument_size_in_bytes']} B, peak "
+                     f"{mem['peak_memory_in_bytes']} B, fits {mem['fits']}"
+                     f"{' (deviation)' if r.get('deviation') else ''}, flops/dev "
+                     f"{r['cost']['flops_per_device']:.4e}, wire/dev "
+                     f"{r['collective_wire_bytes_per_device']:.4e} B, "
+                     f"{r['build_seconds'] + r['step_seconds']:.2f} s")
+        elif r["status"] == "error":
+            line += f": {r['error'][:300]}"
+        log(line)
+    bad = {k: recs.get(k, {}).get("status", "missing") for k in expected
+           if recs.get(k, {}).get("status") != expected[k]}
+    log(f"dry run: {len(recs)} of {len(expected)} records in {wall:.1f} s wall (budget "
+        f"{DRYRUN_BUDGET_S} s), exit {run.returncode}")
+    if bad or run.returncode:
+        raise AssertionError(f"dry run: statuses {bad}, exit {run.returncode}:\n"
+                             f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    not_fit = sorted("__".join(k) for k, r in recs.items()
+                     if r["status"] == "ok" and r["memory"]["fits"] is False)
+    return [dict(algorithm="dryrun", records=len(recs), wall_s=wall,
+                 hbm_bytes=next(r["memory"]["hbm_bytes"] for r in recs.values()
+                                if r["status"] == "ok"),
+                 not_fitting=not_fit)]
+
+
 @contextlib.contextmanager
 def phase_clock(torch, name):
     """Logs a phase's wall time and its peak device memory."""
@@ -4866,6 +5011,9 @@ def main(argv=None) -> int:
         for name, access in (("transit", "index"), ("power_law", "hybrid")):
             tger, fields, _, _ = contexts[name]
             records += ring_stream(torch, np, name, graphs[name], tger, fields, access)
+        tger, fields, _, _ = contexts["power_law"]
+        records += tiny_gate_stream(torch, np, "power_law", graphs["power_law"], tger,
+                                    fields)
     counts = launch_counts()
     log(f"graph paths launches: {counts}")
     # -- the frontier ladder, counted on its own ------------------------------
@@ -4959,6 +5107,9 @@ def main(argv=None) -> int:
         example_records, example_counts = examples_path(torch, np, args.seed)
     records += example_records
     log(f"examples phase launches: {example_counts}")
+    # -- the dry run of every cell on the production meshes (a subprocess) ----
+    with phase_clock(torch, "dryrun"):
+        records += dryrun_path(args.dryrun_out)
     for label, got in (("kairos", kairos_counts), ("models", model_counts),
                        ("sharded training", sharded_counts)):
         if any(got.values()):

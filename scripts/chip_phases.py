@@ -1,15 +1,18 @@
 """Run some of ``chip_smoke.py``'s phases alone on the card, in one process.
 
     python3 scripts/chip_phases.py [--seed S] PHASE ...
-        (PHASE: kairos, models, sharded, examples)
+        (PHASE: kairos, models, sharded, examples, dryrun)
 
 ``kairos`` is the paper's six cells at |V| = 1e7, |E| = 1e9
 (``kairos_path``); ``models`` is graphsage-reddit, gcn-cora, gin-tu, nequip
 and mind at their published widths (``gnn_paths``, ``nequip_path``,
 ``mind_path``); ``sharded`` is sharded training on a one-rank NCCL mesh
 (``sharded_train_path``); ``examples`` runs ``examples/*_torch.py`` on the
-card against the CPU (``examples_path``).  Only ``examples`` reaches a port
-kernel (K4, built at its first launch).  Each
+card against the CPU (``examples_path``); ``dryrun`` is the dry run of
+every cell on the 256- and 512-rank production meshes, in a subprocess,
+against the card's memory (``dryrun_path``; ``--dryrun-out DIR`` keeps its
+records).  Only ``examples`` reaches a port kernel (K4, built at its first
+launch).  Each
 phase runs with chip_smoke.py's checks, logs its wall time and peak device
 memory, and its records print as ``query`` JSON lines; the card's name and
 power limit come first, as ``nvidia-smi`` gives them.  A profile read here
@@ -29,8 +32,10 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("phases", nargs="+", choices=["kairos", "models", "sharded", "examples"])
+    ap.add_argument("phases", nargs="+",
+                    choices=["kairos", "models", "sharded", "examples", "dryrun"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dryrun-out", metavar="DIR")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -59,6 +64,8 @@ def main(argv=None) -> int:
                 records += cs.sharded_train_path(torch, np, args.seed)
             elif phase == "examples":
                 records += cs.examples_path(torch, np, args.seed)[0]
+            elif phase == "dryrun":
+                records += cs.dryrun_path(args.dryrun_out)
             else:
                 records += cs.gnn_paths(torch, np, args.seed, "cuda")
                 records += cs.nequip_path(torch, np, args.seed, "cuda")

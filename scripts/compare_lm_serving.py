@@ -10,11 +10,13 @@ tree's source into that tree's ``build/``, draws phi4-mini-3.8b (32 layers,
 bfloat16) from ``--seed`` with that tree's ``init_lm``, and serves
 ``chip_smoke.py``'s 16 requests (prompts of 16-512 tokens, budgets up to
 64) on a ``ServeEngine`` of 8 slots x 2048 positions after one warm-up
-prefill and decode step.  The versions run in the order this, others...,
-others reversed, this, repeated ``--turns`` times.  Prints the card's name
-and power limit as ``nvidia-smi`` gives them, one JSON line per turn (ms per
-decode step: median and mean; prefill ms per request: mean; decode
-tokens/s; a hash of the served tokens) and a summary line with each
+prefill and decode step, then one more decode step under the profiler
+(its wall time, device busy time and kernel launches).  The versions run
+in the order this, others..., others reversed, this, repeated ``--turns``
+times.  Prints the card's name and power limit as ``nvidia-smi`` gives
+them, one JSON line per turn (ms per decode step: median and mean; prefill
+ms per request: mean; decode tokens/s; the profiled step; a hash of the
+served tokens) and a summary line with each
 version's means over its turns.  A version's served tokens must be the
 same in each of its turns (two trees may draw their random weights in
 another order, and then serve other tokens at the same shapes).  Needs one
@@ -38,6 +40,7 @@ def worker(tree: str, seed: int) -> dict:
     sys.path[:0] = [str(tree / "src")]
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
@@ -82,7 +85,15 @@ def worker(tree: str, seed: int) -> dict:
         engine.run()
     tokens = np.asarray([t for r in reqs for t in r.generated], np.int64)
     decode_tokens = engine.stats.tokens_generated - len(prefill_ms)
-    return dict(decode_ms_median=float(np.median(decode_ms)),
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        engine._decode()                       # one more step, over the last slots
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(profiled_decode_ms=decode_ms.pop(),
+                profiled_decode_busy_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+                profiled_decode_launches=sum(e.count for e in kernels),
+                decode_ms_median=float(np.median(decode_ms)),
                 decode_ms_mean=float(np.mean(decode_ms)),
                 prefill_ms_mean=float(np.mean(prefill_ms)),
                 decode_tokens_per_s=decode_tokens / (sum(decode_ms) / 1e3),

@@ -20,16 +20,21 @@ class Cell:
 
 
 class ArchSpec:
-    """Interface every architecture family implements (see families.py).
-
-    Not ported: ``lowerable``, which builds an XLA dry-run program with
-    shardings (a JAX mechanism: ``launch/dryrun.py`` compiles it for 512
-    forced host devices)."""
+    """Interface every architecture family implements (see families.py)."""
 
     arch_id: str = ""
     family: str = ""
     source: str = ""
     cells: Dict[str, Cell] = {}
+    # why the family's dry program is not the reference's layout (None: it
+    # is); the dry run records it and leaves ``fits`` unanswered
+    dry_deviation: Optional[str] = None
+
+    def dry_program(self, cell_name: str, mesh):
+        """(fn, args): the cell's step and its arguments for the dry run
+        (``launch/dryrun.py``), every tensor a ``meta`` DTensor placed on
+        ``mesh`` — the counterpart of the reference's ``lowerable``."""
+        raise NotImplementedError
 
     def model_flops(self, cell_name: str) -> float:
         """The model FLOPs of one step of the cell."""

@@ -11,9 +11,20 @@ dry run compiles for a cell.  An ``LMFamily`` trains sharded on a
 ``train_objects(model, mesh)`` runs its step under ``use_mesh`` with those
 rules, as the reference's ``lowerable`` does.
 
-Not ported: ``lowerable`` and ``layer_scaled_lowerable``, which build XLA
-dry-run programs with shardings (a JAX mechanism: ``launch/dryrun.py``
-compiles them for 512 forced host devices).
+``dry_program(cell_name, mesh)`` is the counterpart of the reference's
+``lowerable``: the cell's step function and its arguments as ``meta``
+tensors placed as DTensors on ``mesh`` (``distribute_tree`` under the
+logical axes and rules the reference's ``_shardings_from_axes`` uses), for
+``launch/dryrun.py`` to run once.  It keeps the reference's per-cell
+choices: MoE dispatch groups follow pod x data (``mesh_cfg``); decode cells
+keep weights sharded (``gather_weights=False``), ungrouped MoE dispatch and
+the default rules; the GNN molecule cell passes ``n_graphs``.  Train and
+prefill cells widen their kv chunks to at most 64 tile steps a layer
+(``_dry_attention``: the same FLOPs, less host time).  Parameters
+are built from the shape trees, never drawn.  ``layer_scaled_lowerable``
+has no counterpart: it lowers one and two unrolled layers only because
+XLA's cost analysis counts a ``scan`` body once, and an eager step runs,
+and counts, every layer.
 """
 from __future__ import annotations
 
@@ -31,8 +42,59 @@ from repro_torch.models import mind as mind_mod
 from repro_torch.models import nequip as nequip_mod
 from repro_torch.models import transformer as tf
 from repro_torch.train import optimizer as opt_mod
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+
+I32 = torch.int32
+F32 = torch.float32
+
+
+def _meta(shape, dtype):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _on_mesh(fn, mesh, rules=None):
+    """``fn`` run under ``use_mesh(mesh, rules)``."""
+    def run(*args):
+        with use_mesh(mesh, rules=rules):
+            return fn(*args)
+
+    return run
+
+
+# the most (q chunk, kv chunk) tile steps a layer's attention takes in the
+# dry run (each meta op costs host time: a 32k-token layer has 2,048 tiles
+# at 512 x 1024)
+_DRY_TILE_STEPS = 64
+
+
+def _dry_attention(cfg, seq: int):
+    """``cfg`` for the dry run over ``seq`` tokens: its kv chunk widened by
+    the least whole multiple that divides ``seq`` and leaves a layer at most
+    ``_DRY_TILE_STEPS`` tile steps (``cfg`` as it is where it already does).
+    ``flash_attention`` computes every tile, masked ones too, so the
+    products, and the FLOPs, are the configured chunks'; a wider tile holds
+    more scores at once, so there the dry run's peak is an upper bound of
+    theirs."""
+    nq = seq // min(cfg.q_chunk, seq)
+    kv = min(cfg.kv_chunk, seq)
+    wide = next((m * kv for m in range(1, seq // kv + 1)
+                 if seq % (m * kv) == 0 and nq * (seq // (m * kv)) <= _DRY_TILE_STEPS), seq)
+    return cfg if wide == kv else dataclasses.replace(cfg, kv_chunk=wide)
+
+
+def _dry_train_args(params, p_axes, kind, optimizer, batch, batch_axes, mesh, rules=None):
+    """(params, optimizer state, batch) of a train cell on ``mesh``: the meta
+    parameters, the optimizer's zeros of them and the meta batch, placed by
+    the parameters' axes, ``state_axes`` and the batch's axes under
+    ``rules`` (the reference's three ``_shardings_from_axes``)."""
+    shapes = tree_map(lambda p: tuple(p.shape), params)
+    state = {"opt": distribute_tree(optimizer.init(params),
+                                    opt_mod.state_axes(kind, p_axes, shapes), mesh, rules),
+             "step": 0}
+    return (distribute_tree(params, p_axes, mesh, rules), state,
+            distribute_tree(batch, batch_axes, mesh, rules))
+
 
 LM_CELLS = {
     "train_4k": Cell("train_4k", "train", dict(seq=4096, batch=256)),
@@ -102,6 +164,41 @@ class LMFamily(ArchSpec):
         cfg = self.mesh_cfg(model.cfg, mesh)
         return tf.LM(cfg, distribute_tree(model.params, tf.param_axes(cfg), mesh,
                                           self.rules_override))
+
+    def dry_program(self, cell_name: str, mesh):
+        """(fn, args) of the cell on ``mesh`` for the dry run, every tensor a
+        meta DTensor: a train step of (params, state, batch); a prefill of
+        (model, tokens); a decode step of (model, cache, tokens, lens)."""
+        cell = self.cells[cell_name]
+        B, S = cell.meta["batch"], cell.meta["seq"]
+        cfg = _dry_attention(self.mesh_cfg(self.cfg, mesh), S)
+        rules = self.rules_override
+        params = tree_map(lambda shape: _meta(shape, cfg.dtype), tf.param_shapes(cfg))
+        p_axes = tf.param_axes(cfg)
+        if cell.kind == "train":
+            tokens = {"tokens": _meta((B, S), I32), "labels": _meta((B, S), I32)}
+            axes = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+            p, state, batch = _dry_train_args(params, p_axes, self.optimizer_kind,
+                                              self.optimizer(), tokens, axes, mesh, rules)
+            model = tf.LM(cfg, p)
+            return self.train_objects(model, mesh)[1], (model.params, state, batch)
+        if cell.kind == "prefill":
+            model = tf.LM(cfg, distribute_tree(params, p_axes, mesh, rules))
+            tokens = distribute_tree(_meta((B, S), I32), ("batch", "seq"), mesh, rules)
+            return _on_mesh(tf.prefill, mesh, rules), (model, tokens)
+        if cell.kind == "decode":
+            # activations are [B, d]: weights stay sharded (no ZeRO-3 gather),
+            # ungrouped MoE dispatch, default rules
+            dcfg = dataclasses.replace(
+                cfg, gather_weights=False,
+                moe=dataclasses.replace(cfg.moe, n_groups=1) if cfg.moe else None)
+            model = tf.LM(dcfg, distribute_tree(params, p_axes, mesh))
+            shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+            cache = distribute_tree({"k": _meta(shape, cfg.dtype), "v": _meta(shape, cfg.dtype)},
+                                    tf.cache_axes(), mesh)
+            rows = [distribute_tree(_meta((B,), I32), ("batch",), mesh) for _ in range(2)]
+            return _on_mesh(tf.decode_step, mesh), (model, cache, *rows)
+        raise ValueError(cell.kind)
 
     def layer_count(self) -> int:
         return self.cfg.n_layers
@@ -245,6 +342,27 @@ class GNNFamily(ArchSpec):
 
         return optimizer, make_train_step(loss, optimizer, TrainConfig())
 
+    def dry_program(self, cell_name: str, mesh):
+        """(train step, (params, state, batch)) of the cell on ``mesh`` for
+        the dry run, every tensor a meta DTensor."""
+        cell = self.cells[cell_name]
+        cfg = self.cfg_for(cell_name)
+        params = gnn_mod.init_gnn(cfg, None, "meta")
+        n, e = _cell_sizes(cell)
+        m = cell.meta
+        batch = {"x": _meta((n, m["d_feat"]), F32), "src": _meta((e,), I32),
+                 "dst": _meta((e,), I32)}
+        axes = {"x": (None, None), "src": ("edges",), "dst": ("edges",)}
+        if cell.name == "molecule":
+            batch.update(graph_id=_meta((n,), I32), labels=_meta((m["batch"],), I32))
+            axes.update(graph_id=(None,), labels=(None,))
+        else:
+            batch.update(labels=_meta((n,), I32), label_mask=_meta((n,), F32))
+            axes.update(labels=(None,), label_mask=(None,))
+        optimizer, step = self.train_objects(cell_name)
+        return _on_mesh(step, mesh), _dry_train_args(
+            params, gnn_mod.gnn_param_axes(params), "adamw", optimizer, batch, axes, mesh)
+
     def model_flops(self, cell_name: str) -> float:
         cfg = self.cfg_for(cell_name)
         n, e = _cell_sizes(self.cells[cell_name])
@@ -313,6 +431,30 @@ class NequIPFamily(ArchSpec):
             return torch.mean((e - b["energy_target"]) ** 2), {"e_mean": e.mean()}
 
         return optimizer, make_train_step(loss, optimizer, TrainConfig())
+
+    # the reference shards ``src`` and ``dst`` over ``edges``; with them
+    # sharded, DTensor's rules fail in the tensor products' backward (a view
+    # of a non-contiguous shard) on torch 2.13, and the products taken shard
+    # by shard (``local_einsum``) get edge operands of two sizes on 2.11
+    dry_deviation = ("edges and parameters replicated on every rank, not sharded over "
+                     "'edges': memory and wire bytes are not the production program's")
+
+    def dry_program(self, cell_name: str, mesh):
+        """(train step, (params, state, batch)) of the cell on ``mesh`` for
+        the dry run, every tensor a meta DTensor, all of them replicated
+        (``dry_deviation``; ROADMAP Queue 3)."""
+        cell = self.cells[cell_name]
+        params = nequip_mod.init_nequip(self.cfg, None, "meta")
+        n, e = _cell_sizes(cell)
+        n_graphs = cell.meta["batch"] if cell.name == "molecule" else 1
+        batch = {"species": _meta((n,), I32), "pos": _meta((n, 3), F32),
+                 "src": _meta((e,), I32), "dst": _meta((e,), I32),
+                 "graph_id": _meta((n,), I32), "energy_target": _meta((n_graphs,), F32)}
+        axes = {k: (None,) * v.ndim for k, v in batch.items()}
+        p_axes = tree_map(lambda p: (None,) * p.ndim, params)
+        optimizer, step = self.train_objects(cell_name)
+        return _on_mesh(step, mesh), _dry_train_args(params, p_axes, "adamw", optimizer,
+                                                     batch, axes, mesh)
 
     def model_flops(self, cell_name: str) -> float:
         cfg = self.cfg
@@ -390,6 +532,32 @@ class RecsysFamily(ArchSpec):
         step = make_train_step(lambda p, b: (mind_mod.train_loss(p, b, cfg), {}),
                                optimizer, TrainConfig())
         return optimizer, step
+
+    def dry_program(self, cell_name: str, mesh):
+        """(fn, args) of the cell on ``mesh`` for the dry run, every tensor a
+        meta DTensor: the train step of (params, state, batch), or
+        ``serve_step`` / ``retrieval_step`` of (params, batch)."""
+        cell = self.cells[cell_name]
+        cfg = self.cfg
+        params = mind_mod.init_mind(cfg, None, "meta")
+        p_axes = mind_mod.mind_param_axes(params)
+        B = cell.meta["batch"]
+        batch = {"hist": _meta((B, cfg.hist_len), I32)}
+        axes = {"hist": ("batch", None)}
+        if cell.kind == "train":
+            batch.update(target=_meta((B,), I32), negatives=_meta((B, cfg.n_negatives), I32))
+            axes.update(target=("batch",), negatives=("batch", None))
+            optimizer, step = self.train_objects()
+            return _on_mesh(step, mesh), _dry_train_args(params, p_axes, "adamw", optimizer,
+                                                         batch, axes, mesh)
+        if cell.kind == "serve":
+            fn = lambda p, b: mind_mod.serve_step(p, b, cfg)  # noqa: E731
+        else:
+            batch["candidates"] = _meta((cell.meta["n_candidates"],), I32)
+            axes["candidates"] = ("candidates",)
+            fn = lambda p, b: mind_mod.retrieval_step(p, b, cfg)  # noqa: E731
+        return _on_mesh(fn, mesh), (distribute_tree(params, p_axes, mesh),
+                                    distribute_tree(batch, axes, mesh))
 
     def model_flops(self, cell_name: str) -> float:
         cell = self.cells[cell_name]

@@ -13,9 +13,10 @@ and two the exchange flag of the distributed round adds (``ea_sparse_1b``,
 ``ea_selsparse_1b``: the top-K exchange without and with the index gather).
 The rounds are ``repro_torch.distributed.graph_engine``'s.
 
-Not ported: ``lowerable``, which builds the cells' XLA dry-run programs
-with shardings (a JAX mechanism: ``launch/dryrun.py`` compiles them for 512
-forced host devices).
+``KairosFamily.dry_program`` (the reference's ``lowerable``) gives a cell's
+round and this rank's arguments on meta tensors for ``launch/dryrun.py``:
+the [S / model, V] source rows, the five edge columns' chunk of E / (pod x
+data) and the window, a host pair.
 """
 from __future__ import annotations
 
@@ -103,6 +104,31 @@ class KairosFamily(ArchSpec):
     def __init__(self):
         self.arch_id = "kairos"
         self.cells = dict(KAIROS_CELLS)
+
+    def dry_program(self, cell_name: str, mesh):
+        """(round, args) of the cell on ``mesh`` for the dry run: the
+        ``graph_engine`` round of the cell (the EA round from ``cell_plan``)
+        and this rank's meta arguments, as a round function takes them —
+        its source rows (``local_rows`` of the [S, V] state), its chunk of
+        each edge column and the window (an int32 pair on the host)."""
+        from repro_torch.distributed import graph_engine as ge
+
+        cell = self.cells[cell_name]
+        m = cell.meta
+        V, E = m["n_vertices"], m["n_edges"]
+        meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")  # noqa: E731
+        n_shards = ge.edge_mesh_axis(mesh).size
+        per = -(-E // n_shards)
+        edges = [meta((per,), torch.int32) for _ in range(4)] + [meta((per,), torch.bool)]
+        window = torch.tensor([0, np.iinfo(np.int32).max - 1], dtype=torch.int32)
+        if cell.name.startswith("ea"):
+            rows = ge.local_rows(mesh, meta((m["sources"], V), torch.int32)).clone()
+            return ge.make_ea_round_plan(mesh, V, cell_plan(cell)), (rows, *edges, window)
+        if cell.name.startswith("cc"):
+            return ge.make_cc_round(mesh, V), (meta((V,), torch.int32), *edges, window)
+        inv_deg = meta((V,), torch.float32)
+        return ge.make_pagerank_round(mesh, V), (meta((V,), torch.float32), *edges, inv_deg,
+                                                 window)
 
     def model_flops(self, cell_name: str) -> float:
         """Useful work per round: ~8 VPU ops per (edge x query) touched.

@@ -10,6 +10,9 @@ CFG = LMConfig(
     name="phi4-mini-3.8b",
     n_layers=32, d_model=3072, n_heads=24, n_kv_heads=8, d_head=128,
     d_ff=8192, vocab=200064, rope_theta=1e4,
+    # no activation recompute, as the reference's config (3.8B parameters
+    # leave activation headroom at 1M tokens a pod)
+    remat=False,
 )
 
 SMOKE = LMConfig(

@@ -12,6 +12,9 @@ CFG = LMConfig(
     n_layers=48, d_model=2048, n_heads=32, n_kv_heads=4, d_head=128,
     d_ff=0, vocab=151936, rope_theta=1e6, use_qk_norm=True,
     moe=MoEConfig(n_experts=128, top_k=8, d_ff=768),
+    # no activation recompute, as the reference's config (d_model 2048
+    # leaves activation headroom at 1M tokens a pod)
+    remat=False,
 )
 
 SMOKE = LMConfig(

@@ -95,7 +95,8 @@ def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device=None):
     backend = str(dist.get_backend())
     kind = ("cuda" if backend == "nccl" else "cpu") if device is None else \
         torch.device(device).type
-    if backend_for(kind) != backend:
+    # the dry run's fake group ("fake") stands in for any backend
+    if backend != "fake" and backend_for(kind) != backend:
         raise ValueError(
             f"{kind} tensors need the {backend_for(kind)!r} backend but the "
             f"process group runs {backend!r}")

@@ -40,6 +40,8 @@ import threading
 from collections.abc import Mapping
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import torch
+
 MeshAxes = Union[str, Tuple[str, ...], None]
 
 # default logical -> mesh-axis rules (production mesh: pod/data/model)
@@ -229,6 +231,21 @@ def distribute_tree(tree, axes_tree, mesh, rules: Optional[Dict[str, MeshAxes]] 
         t.detach(), mesh, placements(t.shape, axes, mesh, rules_obj)), axes_tree, tree)
 
 
+def zeros_placed(shape, logical_axes, mesh, dtype, device):
+    """Zeros of ``shape`` as a DTensor on ``mesh``, placed by their logical
+    axes, each rank allocating only its own shard (on ``device``)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    pl = placements(shape, logical_axes, mesh)
+    local = list(shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)    # logical_spec shards only what divides
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh, pl,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
@@ -299,6 +316,141 @@ def axis0_local(fn, n_out: int, *tensors):
                      device_mesh=mesh, redistribute_inputs=True)(*tensors)
 
 
+def _on_local_shards(fn, operands, in_pl, out_pl, mesh):
+    """``fn`` on each rank's own shards of ``operands`` (redistributed to
+    ``in_pl`` first; a plain tensor taken as replicated), its result a
+    DTensor with placements ``out_pl``.  An operand whole on a mesh
+    dimension where the result is split (``Shard`` or ``Partial``) gets its
+    gradient there as a pending sum of the ranks' shares."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    operands = [t if is_dtensor(t) else
+                DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                for t in operands]
+    grad_pl = tuple([p if p != Replicate() or out_pl[m] == Replicate() else Partial()
+                     for m, p in enumerate(pl)] for pl in in_pl)
+    return local_map(fn, out_placements=list(out_pl), in_placements=tuple(in_pl),
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*operands)
+
+
+def local_einsum(equation: str, *operands, fn=None):
+    """``fn(*operands)`` (``torch.einsum(equation, ...)`` unless given: a
+    function that computes ``equation``); on DTensors each rank runs it on
+    its own shards (``local_map``), so no DTensor view or einsum rule is
+    involved.  Per mesh dimension, the first operand sharded there names
+    the index letter that stays sharded: every operand holding that letter
+    is sharded along it, the others are made whole on that dimension, and
+    the result is sharded along the letter, or a pending sum (``Partial``)
+    where the letter is summed over."""
+    if fn is None:
+        fn = lambda *t: torch.einsum(equation, *t)  # noqa: E731
+    if not any(is_dtensor(t) for t in operands):
+        return fn(*operands)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    ins, out = equation.replace(" ", "").split("->")
+    specs = ins.split(",")
+    if "..." in ins:
+        n = max(t.ndim - len(sp) + 3 for t, sp in zip(operands, specs) if "..." in sp)
+        fill = "".join(c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ" if c not in ins)[:n]
+        specs = [sp.replace("...", fill[n - (t.ndim - len(sp) + 3):])
+                 for t, sp in zip(operands, specs)]
+        out = out.replace("...", fill)
+    mesh = next(t for t in operands if is_dtensor(t)).device_mesh
+    in_pl = [[Replicate()] * mesh.ndim for _ in operands]
+    out_pl = [Replicate()] * mesh.ndim
+    for m in range(mesh.ndim):
+        letter = next((sp[t.placements[m].dim] for t, sp in zip(operands, specs)
+                       if is_dtensor(t) and isinstance(t.placements[m], Shard)), None)
+        if letter is None:
+            continue
+        for k, sp in enumerate(specs):
+            if letter in sp:
+                in_pl[k][m] = Shard(sp.index(letter))
+        out_pl[m] = Shard(out.index(letter)) if letter in out else Partial()
+    return _on_local_shards(fn, operands, in_pl, out_pl, mesh)
+
+
+def local_lookup(table, ids):
+    """``table[ids]`` (rows of ``table`` [V, ...] at integer ``ids``); on
+    DTensors each rank looks its own rows up: where the table's rows are
+    sharded, ids outside the rank's rows give zeros and the result is a
+    pending sum (``Partial``) there; ids keep their sharding, a sharded
+    column of the table stays sharded."""
+    if not (is_dtensor(table) or is_dtensor(ids)):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = (table if is_dtensor(table) else ids).device_mesh
+    tp = list(table.placements) if is_dtensor(table) else [Replicate()] * mesh.ndim
+    ip = list(ids.placements) if is_dtensor(ids) else [Replicate()] * mesh.ndim
+    t_in, i_in, out_pl, row_dims = [], [], [], []
+    for m in range(mesh.ndim):
+        if isinstance(tp[m], Shard) and tp[m].dim == 0:
+            t_in.append(Shard(0))
+            i_in.append(Replicate())
+            out_pl.append(Partial())
+            row_dims.append(m)
+        elif isinstance(tp[m], Shard):
+            t_in.append(tp[m])
+            i_in.append(Replicate())
+            out_pl.append(Shard(ids.ndim + tp[m].dim - 1))
+        elif isinstance(ip[m], Shard):
+            t_in.append(Replicate())
+            i_in.append(ip[m])
+            out_pl.append(ip[m])
+        else:
+            t_in.append(Replicate())
+            i_in.append(Replicate())
+            out_pl.append(Replicate())
+    coord = 0
+    for m in row_dims:
+        coord = coord * mesh.size(m) + mesh.get_local_rank(m)
+
+    def lookup(t, i):
+        if not row_dims:
+            return t[i]
+        rows = i.long() - coord * t.shape[0]
+        held = (rows >= 0) & (rows < t.shape[0])
+        got = t[rows.clamp(0, t.shape[0] - 1)]
+        return got * held.reshape(held.shape + (1,) * (got.ndim - held.ndim)).to(got.dtype)
+
+    return _on_local_shards(lookup, (table, ids), (t_in, i_in), out_pl, mesh)
+
+
+def local_segment_sum(values, ids, n: int):
+    """``zeros(n, ...).index_add(0, ids, values)``; on DTensors each rank sums
+    its own rows: where values or ids are sharded along axis 0 both are,
+    and the result is a pending sum (``Partial``) there; a sharded later
+    axis of ``values`` stays sharded."""
+    if not (is_dtensor(values) or is_dtensor(ids)):
+        return values.new_zeros((n,) + tuple(values.shape[1:])).index_add(0, ids, values)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = (values if is_dtensor(values) else ids).device_mesh
+    vp = list(values.placements) if is_dtensor(values) else [Replicate()] * mesh.ndim
+    ip = list(ids.placements) if is_dtensor(ids) else [Replicate()] * mesh.ndim
+    v_in, i_in, out_pl = [], [], []
+    for m in range(mesh.ndim):
+        if Shard(0) in (vp[m], ip[m]):
+            v_in.append(Shard(0))
+            i_in.append(Shard(0))
+            out_pl.append(Partial())
+        elif isinstance(vp[m], Shard):
+            v_in.append(vp[m])
+            i_in.append(Replicate())
+            out_pl.append(vp[m])
+        else:
+            v_in.append(Replicate())
+            i_in.append(Replicate())
+            out_pl.append(Replicate())
+    return _on_local_shards(
+        lambda v, i: v.new_zeros((n,) + tuple(v.shape[1:])).index_add(0, i, v),
+        (values, ids), (v_in, i_in), out_pl, mesh)
+
+
 def reduced(x):
     """``x`` with every pending (``Partial``) placement reduced to
     ``Replicate()``; any other tensor as it is.  A lookup into a row-sharded
@@ -326,6 +478,7 @@ def gather_fsdp(x, *logical_axes: Optional[str]):
 
 __all__ = ["DEFAULT_RULES", "MeshAxes", "AxisRules", "use_mesh", "current_mesh",
            "logical_spec", "placements", "named_sharding", "spec_tree_sharding",
-           "distribute_tree", "is_dtensor", "full_value", "placed_like", "replicated", "reduced",
+           "distribute_tree", "zeros_placed", "is_dtensor", "full_value", "placed_like",
+           "replicated", "reduced", "local_einsum", "local_lookup", "local_segment_sum",
            "axis0_local",
            "constrain", "gather_fsdp"]

@@ -14,7 +14,9 @@ model never passes 0 (``decode_step`` attends over ``cache_len + 1``).
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version, a
 CUDA tensor launches the kernel or raises.  The wrapper counts its
-launches in ``decode_attention.launches``.
+launches in ``decode_attention.launches``.  A meta tensor (the dry run's)
+takes ``decode_attention_meta``, the plain version's shape path: it
+computes nothing and launches nothing.
 """
 from __future__ import annotations
 
@@ -64,6 +66,19 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len):
     return out.reshape(B, H, Dh).to(q.dtype)
 
 
+def decode_attention_meta(q, k_cache, v_cache):
+    """K4's result shape for meta tensors (the dry run): the plain version's
+    two products, scores over every cache position and their weighted sum
+    of V, in the cache's dtype, with no mask and no softmax.  A FLOP counter
+    counts them as K4's 4·B·H·S·Dh; like the kernel they make no float32
+    copy of the cache."""
+    B, H, Dh = q.shape
+    KH = k_cache.shape[2]
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, KH, H // KH, Dh), k_cache)
+    out = torch.einsum("bhgs,bshd->bhgd", s, v_cache)
+    return out.reshape(B, H, Dh).to(q.dtype)
+
+
 def _check(q, k_cache, v_cache, cache_len):
     name = "decode_attention"
     if q.dim() != 3 or k_cache.dim() != 4:
@@ -88,7 +103,7 @@ def _check(q, k_cache, v_cache, cache_len):
     for key, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: {key} is {t.dtype}, q is {q.dtype}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {q.device}")
 
 
@@ -109,6 +124,8 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     _check(q, k_cache, v_cache, cache_len)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
+    if q.device.type == "meta":
+        return decode_attention_meta(q, k_cache, v_cache)
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {q.dtype}")
     for key, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
@@ -144,5 +161,6 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 decode_attention.launches = 0
 
 
-__all__ = ["decode_attention", "decode_attention_plain", "split_scratch", "MIN_CHUNK",
+__all__ = ["decode_attention", "decode_attention_plain", "decode_attention_meta",
+           "split_scratch", "MIN_CHUNK",
            "MAX_SPLIT", "MAX_GROUP"]

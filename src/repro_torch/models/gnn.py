@@ -21,7 +21,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, local_lookup, local_segment_sum
 from repro_torch.models.params import carry_params, draw_params
 from repro_torch.tree import tree_map
 
@@ -41,13 +41,14 @@ class GNNConfig:
 
 
 def _seg_sum(values: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    """Sum of the rows of ``values`` into ``n`` segments by ``ids``."""
-    return values.new_zeros((n,) + tuple(values.shape[1:])).index_add(0, ids, values)
+    """Sum of the rows of ``values`` into ``n`` segments by ``ids`` (on
+    DTensors shard by shard: ``local_segment_sum``)."""
+    return local_segment_sum(values, ids, n)
 
 
 def aggregate(x, src, dst, n_nodes: int, kind: str):
     """Neighbor aggregation dst <- f(src); the GNN SpMM primitive."""
-    out = _seg_sum(x[src], dst, n_nodes)
+    out = _seg_sum(local_lookup(x, src), dst, n_nodes)
     if kind == "mean":
         deg = _seg_sum(torch.ones(src.shape, dtype=x.dtype, device=x.device), dst, n_nodes)
         out = out / torch.clamp(deg, min=1.0)[:, None]
@@ -123,7 +124,7 @@ def gnn_forward(params, batch, cfg: GNNConfig):
             deg = _seg_sum(torch.ones(src.shape, dtype=torch.float32, device=x.device),
                            dst, n) + 1.0
             inv_sqrt = torch.rsqrt(deg)
-            msgs = (x * inv_sqrt[:, None])[src]
+            msgs = local_lookup(x * inv_sqrt[:, None], src)
             agg = _seg_sum(msgs, dst, n) * inv_sqrt[:, None]
             agg = agg + x * (inv_sqrt**2)[:, None]          # self loop
             x = agg @ lp["w"] + lp["b"]

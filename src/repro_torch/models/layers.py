@@ -18,7 +18,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import axis0_local, constrain, is_dtensor, replicated
+from repro_torch.distributed.sharding import (
+    axis0_local,
+    constrain,
+    is_dtensor,
+    local_einsum,
+    replicated,
+)
 from repro_torch.kernels import decode_attention as _k4
 
 
@@ -131,27 +137,49 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     [B, Smax, KH, Dh], ``cache_len`` a scalar or [B] — the number of valid
     positions per row.  Runs K4 on the card, its plain version on the CPU."""
     B = q.shape[0]
+    # DTensor: the query heads are made whole (a GQA group splits the head
+    # axis by KV head, which DTensor cannot do to a sharded head axis)
+    q = replicated(q, 1)
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
     lens = lens.reshape(-1).expand(B).contiguous()
     return _k4.decode_attention(q, k_cache, v_cache, lens)
 
 
+def matmul(a, w):
+    """``a @ w`` (a [..., d], w [d, f]), DTensors included, except where
+    ``a`` is a DTensor sharded along a leading dimension other than its
+    first: ``@`` folds the leading dimensions into one, which torch 2.11's
+    DTensor refuses there, so those operands multiply shard by shard
+    (``local_einsum``)."""
+    if is_dtensor(a):
+        from torch.distributed.tensor import Shard
+
+        if any(isinstance(p, Shard) and 0 < p.dim < a.ndim - 1 for p in a.placements):
+            return local_einsum("...d,df->...f", a, w, fn=torch.matmul)
+    return a @ w
+
+
 def swiglu(x, w_gate, w_up, w_down):
-    h = F.silu(x @ w_gate) * (x @ w_up)
+    h = F.silu(matmul(x, w_gate)) * matmul(x, w_up)
     h = constrain(h, "batch", "seq", "mlp") if h.ndim == 3 else h
-    return h @ w_down
+    return matmul(h, w_down)
+
+
+def _nll(logits, labels):
+    """Per-token negative log-likelihood in float32: logsumexp less the
+    label's logit."""
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
 
 
 def softmax_cross_entropy(logits, labels, mask=None):
     """Mean token cross-entropy in float32 (logsumexp); with ``mask``, the
     masked mean over max(sum(mask), 1).  logits [..., V], labels [...]."""
-    # DTensor: the vocabulary is made whole first (a gather over
-    # vocab-sharded logits takes the masked-partial path, which fails for
-    # logits of more than two dimensions)
-    logits = replicated(logits.float(), -1)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    # DTensor: each rank takes its own rows with the vocabulary whole (a
+    # gather over vocab-sharded logits takes the masked-partial path, which
+    # fails for logits of more than two dimensions, and a gather's backward
+    # on a DTensor builds its zeros whole on every rank)
+    nll = axis0_local(_nll, 1, logits.float(), labels)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -159,4 +187,4 @@ def softmax_cross_entropy(logits, labels, mask=None):
 
 
 __all__ = ["dense_init", "rms_norm", "rope", "rope_tables", "apply_rope", "flash_attention",
-           "decode_attention", "swiglu", "softmax_cross_entropy"]
+           "decode_attention", "matmul", "swiglu", "softmax_cross_entropy"]

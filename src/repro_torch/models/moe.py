@@ -27,7 +27,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import axis0_local, constrain, full_value
+from repro_torch.distributed.sharding import axis0_local, constrain, full_value, local_einsum
 from repro_torch.models.layers import dense_init
 
 
@@ -114,8 +114,13 @@ def _route(params, x, cfg: MoEConfig):
     top_w, top_ids = top_w[:, :K], top_ids[:, :K]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=0)
-    # bincount has no DTensor sharding rule: every rank counts all the ids
-    ce = torch.bincount(full_value(top_ids).reshape(-1), minlength=E).to(probs.dtype) / (T * K)
+    # the ids' counts per expert (bincount's integers, as a scatter of ones:
+    # bincount has no meta kernel); a scatter has no DTensor sharding rule
+    # here, so every rank counts all the ids
+    ids = full_value(top_ids).reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+    ce = counts.to(probs.dtype) / (T * K)
     return probs, top_w, top_ids, E * torch.sum(me * ce)
 
 
@@ -133,11 +138,11 @@ def _moe_dense_mix(params, x, cfg: MoEConfig):
     _, top_w, top_ids, aux = _route(params, x, cfg)
     gate = torch.zeros((T, cfg.n_experts), dtype=torch.float32, device=x.device)
     gate = gate.scatter(1, top_ids, top_w)
-    h = F.silu(torch.einsum("td,edf->tef", x, params["w_gate"].to(dt))) * torch.einsum(
+    h = F.silu(local_einsum("td,edf->tef", x, params["w_gate"].to(dt))) * local_einsum(
         "td,edf->tef", x, params["w_up"].to(dt))
     h = constrain(h, None, "experts", None)
-    out_e = torch.einsum("tef,efd->ted", h, params["w_down"].to(dt))
-    out = torch.einsum("ted,te->td", out_e, gate.to(dt))
+    out_e = local_einsum("tef,efd->ted", h, params["w_down"].to(dt))
+    out = local_einsum("ted,te->td", out_e, gate.to(dt))
     if cfg.n_shared:
         out = _shared(params, x, out)
     return out.to(dt), aux
@@ -172,10 +177,10 @@ def moe_ffn(params, x, cfg: MoEConfig, dtype=None):
     buf = constrain(buf, "moe_groups", "experts", None, None)
 
     # grouped expert computation
-    h = F.silu(torch.einsum("gecd,edf->gecf", buf, params["w_gate"].to(dt))) * torch.einsum(
+    h = F.silu(local_einsum("gecd,edf->gecf", buf, params["w_gate"].to(dt))) * local_einsum(
         "gecd,edf->gecf", buf, params["w_up"].to(dt))
     h = constrain(h, "moe_groups", "experts", None, None)
-    out_buf = torch.einsum("gecf,efd->gecd", h, params["w_down"].to(dt)).reshape(G, E * C, d)
+    out_buf = local_einsum("gecf,efd->gecd", h, params["w_down"].to(dt)).reshape(G, E * C, d)
     out_buf = constrain(out_buf, "moe_groups", None, None)
 
     # weighted scatter back (group-local)

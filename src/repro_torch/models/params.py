@@ -3,7 +3,9 @@
 (numpy arrays) carried over.  A model describes its tree once as a layout
 whose leaves are ``(shape, scale)`` or ``(shape, scale, dtype)``: zeros
 where the scale is None, else a normal draw times the scale, in the
-model's dtype unless the leaf names its own."""
+model's dtype unless the leaf names its own.  On the ``meta`` device with
+no generator (the dry run) the tree holds empty tensors of those shapes
+and dtypes, and nothing is drawn."""
 from __future__ import annotations
 
 import numpy as np
@@ -17,8 +19,12 @@ def draw_params(layout, dtype, generator: torch.Generator, device=None):
     """Tensors for a ``(shape, scale)`` layout tree: zeros where the scale
     is None, else normal draws from ``generator`` times the scale (drawn in
     place, so a large table needs no second copy).  The generator must be
-    on ``device`` (the first CUDA card unless given)."""
+    on ``device`` (the first CUDA card unless given).  On ``meta`` with no
+    generator the leaves are empty tensors (nothing is drawn)."""
     device = resolve_device(device)
+    if device.type == "meta" and generator is None:
+        return tree_map(lambda leaf: torch.empty(
+            leaf[0], dtype=leaf[2] if len(leaf) > 2 else dtype, device=device), layout)
     gdev = generator.device
     if gdev.type != device.type or device.index not in (None, gdev.index):
         raise ValueError(f"the generator is on {gdev}, the weights go to {device}")

@@ -23,12 +23,21 @@ generator's; ``params_from_numpy`` carries the reference's params over and
 ``params_to_numpy`` gives them back.
 
 Differences from the reference, each deliberate:
-- Layers run as a Python loop over the blocks.  ``remat`` and ``unroll``
-  select JAX mechanisms (rematerialisation, scan versus unrolled tracing)
-  and are not fields here.  ``gather_weights`` is always on: each block's
-  weights go through ``gather_fsdp`` at use time, the identity with no mesh.
+- Layers run as a Python loop over the blocks.  ``unroll`` selects a JAX
+  tracing mechanism (scan versus unrolled layers) and is not a field here:
+  an eager loop runs, and counts, every layer.
+- ``remat`` (on by default, as in the reference's ``jax.checkpoint`` with
+  nothing saveable) runs each block of the train path (``forward`` with
+  gradients enabled) under ``torch.utils.checkpoint`` (non-reentrant): the
+  block keeps only its input and recomputes its activations, its ZeRO-3
+  weight gathers included, in the backward pass.  Loss and gradients are
+  bit-identical with and without it.
+- ``gather_weights`` (on by default) sends each block's weights and the
+  head through ``gather_fsdp`` at use time, the identity with no mesh; off,
+  the weights stay sharded (the reference's decode cells).
 - ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``:
-  serving builds no autograd graph.
+  serving builds no autograd graph.  With DTensor weights they run under
+  ``torch.no_grad()``: DTensor cannot make its views in inference mode.
 - ``decode_step`` writes the new K/V into the cache tensors in place and
   returns the same dict; the reference returns fresh arrays.  A cache
   passed to ``decode_step`` must not be reused for another step from the
@@ -37,19 +46,31 @@ Differences from the reference, each deliberate:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from collections.abc import Mapping
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain, gather_fsdp
+from repro_torch.distributed.sharding import (
+    constrain,
+    current_mesh,
+    gather_fsdp,
+    is_dtensor,
+    local_einsum,
+    local_lookup,
+    zeros_placed,
+)
 from repro_torch.models.layers import (
     apply_rope,
     decode_attention,
     flash_attention,
+    matmul,
     rms_norm,
     rope_tables,
     softmax_cross_entropy,
@@ -73,9 +94,11 @@ class LMConfig:
     rope_theta: float = 1e6
     use_qk_norm: bool = False
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
     q_chunk: int = 512
     kv_chunk: int = 1024
     tie_embeddings: bool = False
+    gather_weights: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -224,9 +247,12 @@ _MOE_WEIGHT_AXES = {
 }
 
 
-def _gather_layer_weights(blk: Block) -> Block:
+def _gather_layer_weights(cfg: LMConfig, blk: Block) -> Block:
     """The reference's per-layer ZeRO-3 all-gather of the fsdp-sharded
-    weights; with no mesh every weight is returned as it is."""
+    weights (when ``cfg.gather_weights``); with no mesh every weight is
+    returned as it is."""
+    if not cfg.gather_weights:
+        return blk
     w = dict(blk.__dict__)
     for k, ax in _WEIGHT_AXES.items():
         if k in w:
@@ -325,9 +351,18 @@ def params_to_numpy(model: LM) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _proj(x, w):
-    """x [..., d] @ w [d, ...] -> [..., *w.shape[1:]] (the reference's
-    ``einsum("...d,dhk->...hk")``)."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:])
+    """x [..., d] @ w [d, H, Dh] -> [..., H, Dh] (the reference's
+    ``einsum("...d,dhk->...hk")``); DTensors multiply shard by shard
+    (``local_einsum``: no DTensor view rule meets the sharded heads)."""
+    return local_einsum("...d,dhk->...hk", x, w, fn=lambda x, w: (
+        x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:]))
+
+
+def _out_proj(attn, wo):
+    """attn [..., H, Dh] @ wo [H, Dh, d] -> [..., d], shard by shard for
+    DTensors."""
+    return local_einsum("...hk,hkd->...d", attn, wo, fn=lambda a, w: (
+        a.reshape(a.shape[:-2] + (-1,)) @ w.reshape(-1, w.shape[-1])))
 
 
 def _ffn(cfg: LMConfig, blk, x):
@@ -344,7 +379,7 @@ def layer_forward(cfg: LMConfig, blk, h, rot):
     """One block over a whole sequence: h [B, S, d] -> (h, k, v, aux);
     ``rot`` is the sequence's ``rope_tables``."""
     B, S, _ = h.shape
-    blk = _gather_layer_weights(blk)
+    blk = _gather_layer_weights(cfg, blk)
     x = rms_norm(h, blk.ln1)
     q = _proj(x, blk.wq.to(x.dtype))
     k = _proj(x, blk.wk.to(x.dtype))
@@ -361,16 +396,18 @@ def layer_forward(cfg: LMConfig, blk, h, rot):
     v = constrain(v, "batch", None, "kv_heads", None)
     attn = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                            kv_chunk=cfg.kv_chunk)
-    h = h + attn.reshape(B, S, -1) @ blk.wo.to(x.dtype).reshape(-1, cfg.d_model)
+    h = h + _out_proj(attn, blk.wo.to(x.dtype))
     ff, aux = _ffn(cfg, blk, rms_norm(h, blk.ln2))
     return constrain(h + ff, "batch", "seq", None), k, v, aux
 
 
 def _head(model: LM):
     """The output projection [d, vocab]: the embedding's transpose when tied,
-    else ``lm_head`` (ZeRO-3 gathered)."""
+    else ``lm_head`` (ZeRO-3 gathered when ``gather_weights``)."""
     if model.cfg.tie_embeddings:
         return model.embed.T
+    if not model.cfg.gather_weights:
+        return model.lm_head
     return gather_fsdp(model.lm_head, "fsdp", "vocab")
 
 
@@ -378,7 +415,7 @@ def _logits(model: LM, h, *axes):
     """Final norm and head; ``axes``, when given, are the logits' logical
     axes."""
     h = rms_norm(h, model.final_ln)
-    logits = h @ _head(model).to(h.dtype)
+    logits = matmul(h, _head(model).to(h.dtype))
     return (constrain(logits, *axes) if axes else logits).to(torch.float32)
 
 
@@ -386,14 +423,24 @@ def forward(model: LM, tokens):
     """tokens [B, S] -> (logits [B, S, vocab] float32, summed MoE aux loss)."""
     cfg = model.cfg
     B, S = tokens.shape
-    h = constrain(model.embed[tokens].to(cfg.dtype), "batch", "seq", None)
+    h = constrain(local_lookup(model.embed, tokens).to(cfg.dtype), "batch", "seq", None)
     rot = rope_tables(torch.arange(S, device=h.device).expand(B, S), cfg.head_dim,
                       cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for blk in model.layers:
-        h, _, _, a = layer_forward(cfg, blk, h, rot)
+        if remat:
+            h, a = checkpoint(_train_block, cfg, blk, h, rot, use_reentrant=False)
+        else:
+            h, a = _train_block(cfg, blk, h, rot)
         aux = aux + a
     return _logits(model, h, "batch", "seq", "vocab"), aux
+
+
+def _train_block(cfg: LMConfig, blk, h, rot):
+    """A block of the train path: (h, aux) of ``layer_forward``."""
+    h, _, _, aux = layer_forward(cfg, blk, h, rot)
+    return h, aux
 
 
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], aux_weight: float = 0.01):
@@ -409,13 +456,65 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], aux_weight: float = 0.01)
 # decode (serving)
 # ---------------------------------------------------------------------------
 
+def _serving(fn):
+    """``fn(model, ...)`` with no autograd: under ``inference_mode``, or
+    ``no_grad`` when the model's weights are DTensors."""
+    @functools.wraps(fn)
+    def run(model, *args, **kwargs):
+        with torch.no_grad() if is_dtensor(model.embed) else torch.inference_mode():
+            return fn(model, *args, **kwargs)
+
+    return run
+
+
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, device=None):
     """Zero K/V caches in the model's dtype, each [L, batch, max_seq, KH, Dh],
-    on ``device`` (the first CUDA card unless given)."""
+    on ``device`` (the first CUDA card unless given).  Under ``use_mesh`` of
+    a ``DeviceMesh`` they are DTensors placed by ``cache_axes``, each rank
+    holding its shard."""
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     device = resolve_device(device)
+    mesh = current_mesh()
+    if mesh is not None and not isinstance(mesh, Mapping):
+        return {k: zeros_placed(shape, ax, mesh, cfg.dtype, device)
+                for k, ax in cache_axes().items()}
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def cache_axes():
+    """The logical axes of ``init_cache``'s K and V (the decode layout: the
+    cache's sequence over ``kv_seq``)."""
+    return {"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "v": ("layers", "batch", "kv_seq", "kv_heads", None)}
+
+
+def _cache_write(cache, rows, pos, new):
+    """``cache[rows, pos] = new`` in place (cache [B, S, KH, Dh], new
+    [B, KH, Dh]).  A DTensor cache sharded over rows and positions (one
+    mesh dimension on the sequence, ``kv_seq``) is written shard by shard,
+    ``rows`` being every row in order as ``decode_step`` passes them: each
+    rank writes its rows' new entries whose position falls in its slice of
+    the sequence and rewrites the rest as they were."""
+    if not is_dtensor(cache):
+        cache[rows, pos] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    rows_pl = [p if p == Shard(0) else Replicate() for p in cache.placements]
+    local = cache.to_local()
+    B, S = local.shape[:2]
+    lo = sum(mesh.get_local_rank(i) * S for i, p in enumerate(cache.placements)
+             if p == Shard(1))
+
+    def mine(x):
+        return x.redistribute(mesh, rows_pl).to_local() if is_dtensor(x) else x
+
+    pos = mine(pos).long() - lo
+    held = (pos >= 0) & (pos < S)
+    at = (torch.arange(B, device=local.device), pos.clamp(0, S - 1))
+    local[at] = torch.where(held[:, None, None], mine(new).to(local.dtype), local[at])
 
 
 def layer_decode(cfg: LMConfig, blk, h, kc, vc, slot, rot):
@@ -427,7 +526,7 @@ def layer_decode(cfg: LMConfig, blk, h, kc, vc, slot, rot):
     batch, so its capacity follows B."""
     rows, cache_len, attend = slot
     B = h.shape[0]
-    blk = _gather_layer_weights(blk)
+    blk = _gather_layer_weights(cfg, blk)
     x = rms_norm(h, blk.ln1)
     q = _proj(x, blk.wq.to(x.dtype))
     k = _proj(x, blk.wk.to(x.dtype))
@@ -437,14 +536,14 @@ def layer_decode(cfg: LMConfig, blk, h, kc, vc, slot, rot):
         k = rms_norm(k, blk.k_norm)
     q = apply_rope(q[:, None], *rot)[:, 0]
     k = apply_rope(k[:, None], *rot)[:, 0]
-    kc[rows, cache_len] = k.to(kc.dtype)
-    vc[rows, cache_len] = v.to(vc.dtype)
+    _cache_write(kc, rows, cache_len, k)
+    _cache_write(vc, rows, cache_len, v)
     attn = decode_attention(q, kc, vc, attend)
-    h = h + attn.reshape(B, -1) @ blk.wo.to(x.dtype).reshape(-1, cfg.d_model)
+    h = h + _out_proj(attn, blk.wo.to(x.dtype))
     return h + _ffn(cfg, blk, rms_norm(h, blk.ln2))[0]
 
 
-@torch.inference_mode()
+@_serving
 def decode_step(model: LM, cache, tokens, cache_len):
     """One decode step with per-slot cache lengths (continuous batching).
 
@@ -459,13 +558,13 @@ def decode_step(model: LM, cache, tokens, cache_len):
     cache_len = cache_len.expand(B)
     slot = (torch.arange(B, device=dev), cache_len, (cache_len + 1).to(torch.int32))
     rot = rope_tables(cache_len[:, None], cfg.head_dim, cfg.rope_theta)  # positions [B, 1]
-    h = model.embed[tokens].to(cfg.dtype)      # [B, d]
+    h = local_lookup(model.embed, tokens).to(cfg.dtype)      # [B, d]
     for i, blk in enumerate(model.layers):
         h = layer_decode(cfg, blk, h, cache["k"][i], cache["v"][i], slot, rot)
     return _logits(model, h, "batch", "vocab"), cache
 
 
-@torch.inference_mode()
+@_serving
 def prefill(model: LM, tokens, max_seq: Optional[int] = None):
     """Forward over the prompt, materialising the KV cache.
 
@@ -475,7 +574,7 @@ def prefill(model: LM, tokens, max_seq: Optional[int] = None):
     cfg = model.cfg
     B, S = tokens.shape
     max_seq = max_seq or S
-    h = constrain(model.embed[tokens].to(cfg.dtype), "batch", "seq", None)
+    h = constrain(local_lookup(model.embed, tokens).to(cfg.dtype), "batch", "seq", None)
     rot = rope_tables(torch.arange(S, device=h.device).expand(B, S), cfg.head_dim,
                       cfg.rope_theta)
     cache = init_cache(cfg, B, max_seq, device=h.device)
@@ -488,5 +587,6 @@ def prefill(model: LM, tokens, max_seq: Optional[int] = None):
 
 
 __all__ = ["LMConfig", "MoEConfig", "LM", "init_lm", "params_from_numpy", "params_to_numpy",
-           "param_shapes", "param_axes", "forward", "loss_fn", "init_cache", "decode_step",
+           "param_shapes", "param_axes", "forward", "loss_fn", "init_cache", "cache_axes",
+           "decode_step",
            "prefill", "layer_forward", "layer_decode"]

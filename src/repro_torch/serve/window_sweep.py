@@ -113,6 +113,14 @@ from repro_torch.engine.queries import (
     dedup_rows,
 )
 
+# the ring capacity at or below which ``sweep_incremental(tiny_budget_gate=
+# True)`` serves a chain cold: the reference's threshold, kept for parity
+# with it.  On the H100 the gate loses at it (6 advances of a 64-slot index
+# chain: 2.301 ms gated against 1.915 ungated, and 1.837 against 1.539 in a
+# second run, from chip_smoke.py's ``tiny_gate_stream``), so the option
+# stays off by default.
+TINY_BUDGET_RING = 64
+
 # ---------------------------------------------------------------------------
 # the algorithm dispatch table
 # ---------------------------------------------------------------------------
@@ -1348,12 +1356,13 @@ def sweep_incremental(
     hybrid plans advance their ring by the entering positions; scan plans
     reuse the full view.  ``warm_start=True``, ``ladder`` and ``coldstore``
     as in :func:`serve_batch` (a below-horizon sweep refuses
-    ``warm_start``).  ``tiny_budget_gate`` is not in the port yet and
-    raises ``NotImplementedError`` before any state is consumed."""
-    if tiny_budget_gate:
-        raise NotImplementedError(
-            "tiny_budget_gate (serving tiny rings cold) waits for a crossover "
-            "measured on the card: ROADMAP.md Queue 2 item 8")
+    ``warm_start``).  ``tiny_budget_gate=True`` serves a hot-tier index or
+    hybrid chain whose ring capacity (or budget) is at most
+    :data:`TINY_BUDGET_RING` cold under the pinned plan and returns
+    ``None`` as the state (dispatch tags ``gate:tiny-budget``,
+    ``cold:gated``); the rows are the fused advance's.  The gate follows
+    the reference; on the H100 a gated chain is slower than the fused
+    advance (see ``TINY_BUDGET_RING``)."""
     entry = _algo(algorithm)
     windows = to_numpy(windows).astype(np.int32).reshape(-1, 2)
     params = tuple(sorted(kwargs.items()))
@@ -1390,6 +1399,18 @@ def sweep_incremental(
         access = "index"
         if state is not None and state.plan.tier != tier:
             state = None    # a tier switch never consumes the carried state
+    if tiny_budget_gate and tier == "hot":
+        p = plan if plan is not None else plan_query(
+            g, tger, windows=windows, access=access, backend=backend, tier=tier,
+            ladder=int(ladder))
+        if p.method in ("index", "hybrid") and (p.ring_capacity or p.budget) \
+                <= TINY_BUDGET_RING:
+            # at tiny ring capacities the advance's fixed costs dominate:
+            # a stateless cold solve under the pinned plan, no SweepState
+            # (the gate fires again on every sweep of the chain)
+            _note("gate:tiny-budget")
+            _note("cold:gated")
+            return entry.batched(g, src, windows, tger, p, kwargs), None
     results, new_state = _advance(
         g, tger, groups, state, plan_arg=plan,
         plan_builder=lambda: plan_query(g, tger, windows=windows, access=access,

@@ -52,6 +52,10 @@ def test_port_imports_no_jax():
         "from repro_torch.kernels import launch_counts\n"
         "assert set(launch_counts()) == {'segment_min_tiles',\n"
         "    'temporal_relax_min_tiles', 'segment_spmm_tiles', 'decode_attention'}\n"
+        "import contextlib, io, tempfile\n"
+        "from repro_torch.launch import dryrun\n"
+        "with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert dryrun.main(['--arch', 'kairos', '--shape', 'cc_1b', '--out', tmp]) == 0\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -37,7 +37,7 @@ LM_ARCHS = [a for a in ASSIGNED if get_arch(a).family == "lm"]
 OTHER_ARCHS = [a for a in ASSIGNED if get_arch(a).family != "lm"]
 SMOKE_TOL = dict(rtol=1e-5, atol=1e-6)
 
-SKIP_FIELDS = {"dtype", "moe", "remat", "unroll", "gather_weights"}
+SKIP_FIELDS = {"dtype", "moe", "unroll"}
 
 
 def _fields(cfg):

@@ -427,16 +427,39 @@ def test_serve_batch_ladder_rows_equal_dense(ladder_calls):
 
 
 def test_tiny_budget_gate_still_raises_naming_its_item():
-    """``tiny_budget_gate=True`` is not in the port: it raises, before the
-    carried state is touched, naming ROADMAP Queue 2 item 8 (the gate's
-    crossover has to be measured on the card)."""
-    _, tg, _, ti = _graph(4, n_v=64, n_e=512)
+    """The mirror of ``test_frontier.py::test_tiny_budget_gate_routes_cold``
+    (the name is kept from when the gate raised): ``tiny_budget_gate=True``
+    on a tiny-ring index chain serves every sweep cold, with no state, the
+    same dispatch tags as JAX's gated sweep and its rows; the default chain
+    keeps the fused advance."""
+    jg, tg, jti, ti = _graph(4, n_v=64, n_e=512)
     w0 = np.asarray([[0, 60]], np.int32)
-    _, st = tws.sweep_incremental(tg, 3, w0, ti, access="index")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        tws.sweep_incremental(tg, 3, w0 + 20, ti, access="index", state=st,
-                              tiny_budget_gate=True)
-    assert not st.consumed
+    w1 = np.asarray([[20, 80]], np.int32)
+    p = tplan.plan_query(tg, ti, windows=w0, access="index", backend="xla_segment")
+    assert p.method == "index" and (p.ring_capacity or p.budget) <= tws.TINY_BUDGET_RING
+    assert tws.TINY_BUDGET_RING == jws.TINY_BUDGET_RING
+    tags = {}
+    for name, mod, g, idx in (("jax", jws, jg, jti), ("port", tws, tg, ti)):
+        _, st = mod.sweep_incremental(g, 3, w0, idx, access="index", tiny_budget_gate=True)
+        assert st is None
+        with mod.dispatch_log() as gated:
+            r, st = mod.sweep_incremental(g, 3, w1, idx, access="index",
+                                          tiny_budget_gate=True, state=st)
+        assert st is None
+        tags[name] = (list(gated), as_np(r))
+    assert tags["port"][0] == tags["jax"][0] == ["gate:tiny-budget", "cold:gated"]
+    assert np.array_equal(tags["port"][1], tags["jax"][1])
+    r_ref, _ = tws.sweep_incremental(tg, 3, w1, ti, access="index")
+    assert np.array_equal(tags["port"][1], as_np(r_ref))
+    pr = [mod.sweep_incremental(g, None, w1, idx, algorithm="pagerank", access="index",
+                                tiny_budget_gate=True)
+          for mod, g, idx in ((jws, jg, jti), (tws, tg, ti))]
+    assert pr[0][1] is None and pr[1][1] is None
+    np.testing.assert_allclose(as_np(pr[1][0]), np.asarray(pr[0][0]), rtol=1e-5, atol=1e-7)
+    _, st2 = tws.sweep_incremental(tg, 3, w0, ti, access="index")
+    with tws.dispatch_log() as ungated:
+        tws.sweep_incremental(tg, 3, w1, ti, access="index", state=st2)
+    assert ungated == ["fused:index"]
 
 
 # ---------------------------------------------------------------------------

@@ -676,28 +676,37 @@ def test_fixpoint_metrics_match_oracle(seed):
 
 
 def test_sweep_incremental_reports_rounds_and_gates_tiny_budgets():
-    """Rounds are reported on a delta advance.  The reference's tiny-ring
-    cold gate is not in the port (its crossover was calibrated for the
-    reference's backend): ``tiny_budget_gate=True`` raises before the
-    carried state is touched, and a tiny-ring chain advances by the ring
-    delta like any other, bit-identical to the cold sweep."""
+    """Rounds are reported on a delta advance.  ``tiny_budget_gate=True``
+    serves a tiny-ring chain (capacity <= ``TINY_BUDGET_RING``) cold, with
+    no state and the rows of the ungated advance, and leaves a chain above
+    the gate on its fused delta advance; without the gate a tiny-ring chain
+    advances by the ring delta like any other, bit-identical to the cold
+    sweep."""
     _, _, g, idx, src, t_min, t_max = _case()
     span = t_max - t_min
     width, stride = max(span // 40, 4), max(span // 80, 1)
     _, state = sweep_incremental(g, src, sliding_windows(t_max - stride, width, stride, 3),
                                  idx, access="index")
-    _, state = sweep_incremental(g, src, sliding_windows(t_max, width, stride, 3), idx,
-                                 state=state, access="index")
+    assert state.capacity > ws.TINY_BUDGET_RING
+    big = sliding_windows(t_max, width, stride, 3)
+    with ws.dispatch_log() as log:
+        res_big, state = sweep_incremental(g, src, big, idx, state=state, access="index",
+                                           tiny_budget_gate=True)
     assert state.last_advance == "delta" and state.last_rounds >= 1
+    assert log == ["fused:index"]
+    assert torch.equal(res_big, sweep(g, src, big, idx, plan=state.plan))
     _, tiny = sweep_incremental(g, src, sliding_windows(t_max - 2, 4, 2, 2), idx,
                                 access="index")
-    assert tiny.capacity <= 64
-    with pytest.raises(NotImplementedError, match="tiny_budget_gate"):
-        sweep_incremental(g, src, sliding_windows(t_max, 4, 2, 2), idx, state=tiny,
-                          access="index", tiny_budget_gate=True)
-    assert not tiny.consumed
+    assert tiny.capacity <= ws.TINY_BUDGET_RING
+    wins = sliding_windows(t_max, 4, 2, 2)
+    with ws.dispatch_log() as gated_log:
+        gated, none = sweep_incremental(g, src, wins, idx, state=tiny, access="index",
+                                        tiny_budget_gate=True)
+    assert none is None and not tiny.consumed
+    assert gated_log == ["gate:tiny-budget", "cold:gated"]
     wins = sliding_windows(t_max, 4, 2, 2)
     with ws.dispatch_log() as log:
         res, tiny = sweep_incremental(g, src, wins, idx, state=tiny, access="index")
     assert tiny.last_advance == "delta" and log == ["fused:index"]
     assert torch.equal(res, sweep(g, src, wins, idx, plan=tiny.plan))
+    assert torch.equal(gated, res)
