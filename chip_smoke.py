@@ -4822,8 +4822,9 @@ def dryrun_path(out_dir=None) -> list:
     """The dry run of every cell on both production meshes, in a subprocess
     (its fake process groups must not meet this process's NCCL groups);
     the subprocess reads the card's memory for ``fits`` and runs a cell per
-    core at once.  Logs one line per record and the wall time; fails unless each of the records is ``ok``,
-    or ``skipped`` where its cell is skipped.  Returns one summary record."""
+    core at once.  Logs one line per record and the wall time; fails unless
+    each of the records is ``ok``, or ``skipped`` where its cell is skipped,
+    and every ``ok`` record answers ``fits``.  Returns one summary record."""
     import tempfile
 
     from repro_torch.configs import get_arch, list_archs
@@ -4849,8 +4850,7 @@ def dryrun_path(out_dir=None) -> list:
         if r["status"] == "ok":
             mem = r["memory"]
             line += (f", args {mem['argument_size_in_bytes']} B, peak "
-                     f"{mem['peak_memory_in_bytes']} B, fits {mem['fits']}"
-                     f"{' (deviation)' if r.get('deviation') else ''}, flops/dev "
+                     f"{mem['peak_memory_in_bytes']} B, fits {mem['fits']}, flops/dev "
                      f"{r['cost']['flops_per_device']:.4e}, wire/dev "
                      f"{r['collective_wire_bytes_per_device']:.4e} B, "
                      f"{r['build_seconds'] + r['step_seconds']:.2f} s")
@@ -4859,6 +4859,8 @@ def dryrun_path(out_dir=None) -> list:
         log(line)
     bad = {k: recs.get(k, {}).get("status", "missing") for k in expected
            if recs.get(k, {}).get("status") != expected[k]}
+    bad.update({k: f"fits {r['memory']['fits']!r}" for k, r in recs.items()
+                if r["status"] == "ok" and not isinstance(r["memory"]["fits"], bool)})
     log(f"dry run: {len(recs)} of {len(expected)} records in {wall:.1f} s wall (budget "
         f"{DRYRUN_BUDGET_S} s), exit {run.returncode}")
     if bad or run.returncode:

@@ -26,9 +26,6 @@ class ArchSpec:
     family: str = ""
     source: str = ""
     cells: Dict[str, Cell] = {}
-    # why the family's dry program is not the reference's layout (None: it
-    # is); the dry run records it and leaves ``fits`` unanswered
-    dry_deviation: Optional[str] = None
 
     def dry_program(self, cell_name: str, mesh):
         """(fn, args): the cell's step and its arguments for the dry run

@@ -432,17 +432,11 @@ class NequIPFamily(ArchSpec):
 
         return optimizer, make_train_step(loss, optimizer, TrainConfig())
 
-    # the reference shards ``src`` and ``dst`` over ``edges``; with them
-    # sharded, DTensor's rules fail in the tensor products' backward (a view
-    # of a non-contiguous shard) on torch 2.13, and the products taken shard
-    # by shard (``local_einsum``) get edge operands of two sizes on 2.11
-    dry_deviation = ("edges and parameters replicated on every rank, not sharded over "
-                     "'edges': memory and wire bytes are not the production program's")
-
     def dry_program(self, cell_name: str, mesh):
         """(train step, (params, state, batch)) of the cell on ``mesh`` for
-        the dry run, every tensor a meta DTensor, all of them replicated
-        (``dry_deviation``; ROADMAP Queue 3)."""
+        the dry run, every tensor a meta DTensor: ``src`` and ``dst``
+        sharded over ``edges``, the other batch fields and the parameters
+        replicated, as the reference's."""
         cell = self.cells[cell_name]
         params = nequip_mod.init_nequip(self.cfg, None, "meta")
         n, e = _cell_sizes(cell)
@@ -451,6 +445,7 @@ class NequIPFamily(ArchSpec):
                  "src": _meta((e,), I32), "dst": _meta((e,), I32),
                  "graph_id": _meta((n,), I32), "energy_target": _meta((n_graphs,), F32)}
         axes = {k: (None,) * v.ndim for k, v in batch.items()}
+        axes.update(src=("edges",), dst=("edges",))
         p_axes = tree_map(lambda p: (None,) * p.ndim, params)
         optimizer, step = self.train_objects(cell_name)
         return _on_mesh(step, mesh), _dry_train_args(params, p_axes, "adamw", optimizer,

@@ -30,6 +30,10 @@ class Histogram2D:
     start_edges: np.ndarray  # f32[..., nb+1] bin boundaries (ascending)
     dur_edges: np.ndarray    # f32[..., nb+1]
 
+    @property
+    def n_buckets(self) -> int:
+        return self.sat.shape[-1] - 1
+
 
 def build_histogram(t_start, t_end, n_buckets: int = DEFAULT_BUCKETS) -> Histogram2D:
     """Host-side build of one (start × duration) SAT histogram."""

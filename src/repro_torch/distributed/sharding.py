@@ -316,12 +316,13 @@ def axis0_local(fn, n_out: int, *tensors):
                      device_mesh=mesh, redistribute_inputs=True)(*tensors)
 
 
-def _on_local_shards(fn, operands, in_pl, out_pl, mesh):
+def _on_local_shards(fn, operands, in_pl, out_pl, mesh, n_out: int = 1):
     """``fn`` on each rank's own shards of ``operands`` (redistributed to
     ``in_pl`` first; a plain tensor taken as replicated), its result a
-    DTensor with placements ``out_pl``.  An operand whole on a mesh
-    dimension where the result is split (``Shard`` or ``Partial``) gets its
-    gradient there as a pending sum of the ranks' shares."""
+    DTensor with placements ``out_pl`` (with ``n_out`` > 1, a tuple of that
+    many results, each placed so).  An operand whole on a mesh dimension
+    where the result is split (``Shard`` or ``Partial``) gets its gradient
+    there as a pending sum of the ranks' shares."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
 
@@ -330,7 +331,8 @@ def _on_local_shards(fn, operands, in_pl, out_pl, mesh):
                 for t in operands]
     grad_pl = tuple([p if p != Replicate() or out_pl[m] == Replicate() else Partial()
                      for m, p in enumerate(pl)] for pl in in_pl)
-    return local_map(fn, out_placements=list(out_pl), in_placements=tuple(in_pl),
+    out_placements = list(out_pl) if n_out == 1 else (tuple(out_pl),) * n_out
+    return local_map(fn, out_placements=out_placements, in_placements=tuple(in_pl),
                      in_grad_placements=grad_pl, device_mesh=mesh,
                      redistribute_inputs=True)(*operands)
 
@@ -451,6 +453,28 @@ def local_segment_sum(values, ids, n: int):
         (values, ids), (v_in, i_in), out_pl, mesh)
 
 
+def local_edge_sums(fn, src, dst, *operands, n_out: int = 1):
+    """``fn(src, dst, *operands)``: sums over the edges ``src`` / ``dst``
+    [E] into node rows (a message-passing layer's edge stage).  On DTensors
+    each rank runs ``fn`` on its own edges: ``src`` and ``dst`` keep their
+    axis-0 sharding (which may be uneven), every other operand is made
+    whole, and the ``n_out`` results are pending sums (``Partial``) where
+    the edges are sharded.  Every edge-sized tensor is made inside ``fn``
+    from the rank's own rows, so none crosses into DTensor's rules."""
+    tensors = (src, dst, *operands)
+    if not any(is_dtensor(t) for t in tensors):
+        return fn(*tensors)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = next(t for t in tensors if is_dtensor(t)).device_mesh
+    ep = list(src.placements) if is_dtensor(src) else [Replicate()] * mesh.ndim
+    edge_pl = [Shard(0) if p == Shard(0) else Replicate() for p in ep]
+    whole = [Replicate()] * mesh.ndim
+    out_pl = [Partial() if p == Shard(0) else Replicate() for p in edge_pl]
+    return _on_local_shards(fn, tensors, (edge_pl, edge_pl) + (whole,) * len(operands),
+                            out_pl, mesh, n_out)
+
+
 def reduced(x):
     """``x`` with every pending (``Partial``) placement reduced to
     ``Replicate()``; any other tensor as it is.  A lookup into a row-sharded
@@ -480,5 +504,5 @@ __all__ = ["DEFAULT_RULES", "MeshAxes", "AxisRules", "use_mesh", "current_mesh",
            "logical_spec", "placements", "named_sharding", "spec_tree_sharding",
            "distribute_tree", "zeros_placed", "is_dtensor", "full_value", "placed_like",
            "replicated", "reduced", "local_einsum", "local_lookup", "local_segment_sum",
-           "axis0_local",
+           "local_edge_sums", "axis0_local",
            "constrain", "gather_fsdp"]

@@ -80,6 +80,11 @@ class AccessPlan:
     # and ends with one collective over this dimension.
     edge_axis: Any = None
 
+    @property
+    def view_budget(self) -> int:
+        """The budget the edge-view builder needs for this method."""
+        return self.per_vertex_budget if self.method == "hybrid" else self.budget
+
 
 def _cache_key(method: str, backend: str, budget: int, pvb: int, exchange: int,
                tile_v: int, block_e: int, n_windows: int, ring_capacity: int,

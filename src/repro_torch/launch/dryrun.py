@@ -22,8 +22,7 @@ keeps the reference's keys:
     release; arguments count throughout), ``temp_size_in_bytes`` the peak
     less the arguments; ``live_bytes_est`` is the peak, and ``fits`` says
     whether it is at most ``hbm_bytes`` (the card's memory, else
-    ``--hbm-bytes``; ``null`` with neither, and for a family whose program
-    is not the reference's layout, whose ``deviation`` the record states);
+    ``--hbm-bytes``; ``null`` with neither);
   * ``cost.flops_per_device``: FLOPs of rank 0's local ops by
     ``torch.utils.flop_counter``'s formulas (matrix products, convolutions,
     attention; elementwise ops count none);
@@ -285,11 +284,8 @@ def run_cell(arch_id: str, shape: str, mesh_kind: str, out_dir: str,
             "temp_size_in_bytes": counter.peak_bytes - arg_bytes,
             "live_bytes_est": counter.peak_bytes,
             "hbm_bytes": hbm_bytes,
-            "fits": (None if hbm_bytes is None or spec.dry_deviation
-                     else counter.peak_bytes <= hbm_bytes),
+            "fits": None if hbm_bytes is None else counter.peak_bytes <= hbm_bytes,
         }
-        if spec.dry_deviation:
-            rec["deviation"] = spec.dry_deviation
         rec.update(
             status="ok", build_seconds=t_build, step_seconds=t_step, memory=mem,
             cost={"flops_per_device": float(counter.flops),

@@ -12,6 +12,12 @@ The real-basis Wigner-3j intertwiners are computed on the host from first
 principles (Racah's formula + complex->real change of basis): a copy of
 the reference's numpy code, so both packages couple with the same float32
 tensors.  Forces are ``-dE/dpos`` by ``torch.autograd.grad``.
+
+Sharded as the reference's train step: ``src`` and ``dst`` split over the
+edges, node tensors and parameters whole.  On DTensors each layer's edge
+stage (``edge_messages``) runs on each rank's own edges
+(``local_edge_sums``) and its message sums are all-reduced; the node stage
+takes DTensor's own rules.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor, local_edge_sums, reduced
 from repro_torch.models.params import carry_params, draw_params
 
 
@@ -215,35 +222,73 @@ def _w3js(cfg: NequIPConfig, device) -> Dict[Tuple[int, int, int], torch.Tensor]
             for p in cfg.paths}
 
 
-def nequip_forward(params, batch, cfg: NequIPConfig):
-    """batch: {species [N], pos [N,3], src [E], dst [E], (graph_id [N],
-    n_graphs)}.  Returns per-graph (or total) energy [G]."""
-    species, pos = batch["species"], batch["pos"].to(cfg.dtype)
-    src, dst = batch["src"], batch["dst"]
-    N, C = species.shape[0], cfg.d_hidden
-
+def _geometry(pos, src, dst, cfg: NequIPConfig):
+    """The edges' spherical harmonics ([E, 2l+1] per l) and Bessel RBF
+    [E, n_rbf]."""
     r = pos[dst] - pos[src]
     d = torch.linalg.norm(r, dim=-1)
     u = r / torch.clamp(d, min=1e-6)[:, None]
-    Y = spherical_harmonics(u, cfg.l_max)              # [E, 2l2+1] per l2
-    rbf = _bessel_rbf(d, cfg.n_rbf, cfg.cutoff)        # [E, n_rbf]
+    return spherical_harmonics(u, cfg.l_max), _bessel_rbf(d, cfg.n_rbf, cfg.cutoff)
+
+
+def edge_messages(pos, src, dst, feats, lp, cfg: NequIPConfig, geometry=None):
+    """One interaction layer's edge stage on plain tensors: the radial MLP,
+    the tensor products of ``feats[l1][src]`` with the edges' harmonics, and
+    their sums into ``dst``.  Returns the per-``l`` messages [N, C, 2l+1].
+    ``geometry`` is ``_geometry(pos, src, dst, cfg)``, computed here unless
+    given."""
+    Y, rbf = geometry if geometry is not None else _geometry(pos, src, dst, cfg)
+    N, C = feats[0].shape[0], cfg.d_hidden
+    w3js = _w3js(cfg, pos.device)
+    h = F.silu(rbf @ lp["rad_w1"] + lp["rad_b1"])
+    radial = (h @ lp["rad_w2"]).reshape(-1, len(cfg.paths), C)  # [E, P, C]
+
+    msgs = [pos.new_zeros((N, C, 2 * l + 1)) for l in range(cfg.l_max + 1)]
+    for pi, (l1, l2, l3) in enumerate(cfg.paths):
+        f_src = feats[l1][src]                      # [E, C, 2l1+1]
+        tp = torch.einsum("eci,ej,ijk->eck", f_src, Y[l2], w3js[(l1, l2, l3)])
+        tp = tp * radial[:, pi, :, None]
+        msgs[l3] = msgs[l3] + _seg_sum(tp, dst, N)
+    return msgs
+
+
+_RADIAL = ("rad_w1", "rad_b1", "rad_w2")
+
+
+def _sharded_edge_messages(pos, src, dst, feats, lp, cfg: NequIPConfig):
+    """``edge_messages`` on DTensors, each rank on its own edges: every
+    edge-sized tensor is made from the rank's ``src`` / ``dst`` rows, node
+    tensors and parameters go in whole, and the messages come back summed
+    over the ranks."""
+    def local(s, d, p, *rest):
+        radial = dict(zip(_RADIAL, rest[:len(_RADIAL)]))
+        return tuple(edge_messages(p, s, d, list(rest[len(_RADIAL):]), radial, cfg))
+
+    msgs = local_edge_sums(local, src, dst, pos, *(lp[k] for k in _RADIAL), *feats,
+                           n_out=len(feats))
+    return [reduced(m) for m in msgs]
+
+
+def nequip_forward(params, batch, cfg: NequIPConfig):
+    """batch: {species [N], pos [N,3], src [E], dst [E], (graph_id [N],
+    n_graphs)}.  Returns per-graph (or total) energy [G].  On DTensors
+    (``src`` and ``dst`` sharded over the edges, the rest whole) each
+    layer's edge stage runs on each rank's own edges."""
+    species, pos = batch["species"], batch["pos"].to(cfg.dtype)
+    src, dst = batch["src"], batch["dst"]
+    N, C = species.shape[0], cfg.d_hidden
+    sharded = any(is_dtensor(t) for t in (pos, src, dst))
+    geometry = None if sharded else _geometry(pos, src, dst, cfg)
 
     # initial features: scalars from species embedding; higher l zero
     feats = [pos.new_zeros((N, C, 2 * l + 1)) for l in range(cfg.l_max + 1)]
     feats[0] = params["species_embed"][species][:, :, None]
 
-    w3js = _w3js(cfg, pos.device)
-
     for lp in params["layers"]:
-        h = F.silu(rbf @ lp["rad_w1"] + lp["rad_b1"])
-        radial = (h @ lp["rad_w2"]).reshape(-1, len(cfg.paths), C)  # [E, P, C]
-
-        msgs = [pos.new_zeros((N, C, 2 * l + 1)) for l in range(cfg.l_max + 1)]
-        for pi, (l1, l2, l3) in enumerate(cfg.paths):
-            f_src = feats[l1][src]                      # [E, C, 2l1+1]
-            tp = torch.einsum("eci,ej,ijk->eck", f_src, Y[l2], w3js[(l1, l2, l3)])
-            tp = tp * radial[:, pi, :, None]
-            msgs[l3] = msgs[l3] + _seg_sum(tp, dst, N)
+        if sharded:
+            msgs = _sharded_edge_messages(pos, src, dst, feats, lp, cfg)
+        else:
+            msgs = edge_messages(pos, src, dst, feats, lp, cfg, geometry)
 
         new_feats = []
         for l in range(cfg.l_max + 1):
@@ -285,6 +330,7 @@ __all__ = [
     "spherical_harmonics",
     "init_nequip",
     "params_from_numpy",
+    "edge_messages",
     "nequip_forward",
     "nequip_energy_forces",
 ]

@@ -12,9 +12,9 @@ Per cell the port's record equals the reference's in status, skip reason,
 device count, mesh shape and axis names and model FLOPs; its per-device
 argument bytes equal the reference's to the byte, except by one rule: a
 train cell's optimizer step is a host int in the port (ROADMAP Queue 3), so
-its arguments are the reference's less the reference's int32 step.
-NequIP's program replicates what the reference shards: its records say so
-and leave ``fits`` open.  The wire model is the reference's
+its arguments are the reference's less the reference's int32 step.  The
+port runs with a card's memory given, so every ``ok`` record answers
+``fits``.  The wire model is the reference's
 ``parse_collectives``.  FLOPs are rank 0's own: a product sharded over a
 fake (2, 2) mesh counts a quarter of its global FLOPs, a replicated one all
 of them, and a (1, 1) mesh counts the unsharded step's.  ``remat`` leaves a
@@ -46,10 +46,8 @@ CELLS = ([("smollm-135m", s, "single")
          + [("kairos", s, "single") for s in ("ea_scan_1b", "ea_selective_1b",
                                              "ea_sparse_1b", "ea_selsparse_1b",
                                              "cc_1b", "pagerank_1b")]
-         + [("kairos", "ea_selective_1b", "multi")])
-# cells whose program is not the reference's layout (the family's
-# ``dry_deviation``), run with a card's memory given
-DEVIATING = [("nequip", "molecule", m) for m in ("single", "multi")]
+         + [("kairos", "ea_selective_1b", "multi")]
+         + [("nequip", "molecule", m) for m in ("single", "multi")])
 HBM_BYTES = 80 * 2**30
 
 # one synthetic post-SPMD HLO line per collective kind, and its (op, result
@@ -80,14 +78,11 @@ _REFERENCE = textwrap.dedent("""
 _PORT = textwrap.dedent("""
     import json, sys
     from repro_torch.launch import dryrun
-    out, cells, deviating = sys.argv[1], json.loads(sys.argv[2]), json.loads(sys.argv[3])
+    out, cells, hbm_bytes = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3])
     for mesh in ("single", "multi"):
         for arch, shape, m in cells:
             if m == mesh:
-                dryrun.run_cell(arch, shape, mesh, out)
-        for arch, shape, m in deviating:
-            if m == mesh:
-                dryrun.run_cell(arch, shape, mesh, out, hbm_bytes=int(sys.argv[4]))
+                dryrun.run_cell(arch, shape, mesh, out, hbm_bytes=hbm_bytes)
 """)
 
 
@@ -104,16 +99,17 @@ def records(tmp_path_factory):
     env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu"}
     # the port's longest cell (a 32k-token prefill) runs beside its others
     long = [c for c in CELLS if c[1] == "prefill_32k"]
-    procs = {"ref": _run(_REFERENCE, dirs["ref"], json.dumps(CELLS + DEVIATING),
-                         json.dumps(HLO_LINES), env=env),
+    procs = {"ref": _run(_REFERENCE, dirs["ref"], json.dumps(CELLS), json.dumps(HLO_LINES),
+                         env=env),
              "port": _run(_PORT, dirs["port"], json.dumps([c for c in CELLS if c not in long]),
-                          json.dumps(DEVIATING), str(HBM_BYTES), env=env),
-             "port, long": _run(_PORT, dirs["port"], json.dumps(long), "[]", "0", env=env)}
+                          str(HBM_BYTES), env=env),
+             "port, long": _run(_PORT, dirs["port"], json.dumps(long), str(HBM_BYTES),
+                                env=env)}
     for name, p in procs.items():
         out, _ = p.communicate(timeout=240)
         assert p.returncode == 0, f"{name}:\n{out[-4000:]}"
     recs = {name: {(a, s, m): json.load(open(os.path.join(d, f"{a}__{s}__{m}.json")))
-                   for a, s, m in CELLS + DEVIATING} for name, d in dirs.items()}
+                   for a, s, m in CELLS} for name, d in dirs.items()}
     recs["wire"] = json.load(open(os.path.join(dirs["ref"], "wire.json")))
     return recs
 
@@ -143,23 +139,20 @@ def test_record_equals_reference(records, cell):
     assert port["memory"]["peak_memory_in_bytes"] >= port["memory"]["argument_size_in_bytes"]
 
 
-def test_deviating_family_states_it_and_leaves_fits_open(records):
-    """NequIP's dry program replicates its edges and parameters (ROADMAP
-    Queue 3): its records say so and leave ``fits`` unanswered though the
-    card's memory is given; nothing is sharded, so both meshes hold the
-    same argument bytes, at least the reference's sharded ones."""
-    keys = ("status", "skip_reason", "n_devices", "mesh_shape", "model_flops_global")
-    args = set()
-    for cell in DEVIATING:
-        ref, port = records["ref"][cell], records["port"][cell]
-        assert {k: port.get(k) for k in keys} == {k: ref.get(k) for k in keys}
-        assert port["deviation"] == get_arch(cell[0]).dry_deviation
-        assert port["memory"]["hbm_bytes"] == HBM_BYTES and port["memory"]["fits"] is None
-        assert port["memory"]["argument_size_in_bytes"] >= \
-            ref["memory"]["argument_size_in_bytes"]
-        args.add(port["memory"]["argument_size_in_bytes"])
-    assert len(args) == 1
-    assert all("deviation" not in records["port"][c] for c in CELLS)
+def test_nequip_shards_its_edges(records):
+    """NequIP's records are the production program's: no ``deviation``, a
+    boolean ``fits`` against the card's memory, and its edges sharded over
+    ``("pod", "data")``, so a rank holds fewer argument bytes on two pods
+    than on one."""
+    args = {}
+    for mesh in ("single", "multi"):
+        port = records["port"][("nequip", "molecule", mesh)]
+        assert port["status"] == "ok" and "deviation" not in port
+        assert port["memory"]["hbm_bytes"] == HBM_BYTES
+        assert isinstance(port["memory"]["fits"], bool)
+        args[mesh] = port["memory"]["argument_size_in_bytes"]
+    assert args["multi"] < args["single"]
+    assert all("deviation" not in rec for rec in records["port"].values())
 
 
 def test_kairos_collectives_equal_reference(records):

@@ -4,12 +4,14 @@ import numpy as np
 import pytest
 
 import repro.core.coldstore as jcold
+import repro.core.histogram as jhist
 import repro.core.selective as jsel
 import repro.core.tger as jtger
 import repro.data.generators as jgen
 import repro.engine.plan as jplan
 import repro.kernels.layout as jlayout
 import repro_torch.core.coldstore as tcold
+import repro_torch.core.histogram as thist
 import repro_torch.core.selective as tsel
 import repro_torch.core.tger as ttger
 import repro_torch.data.generators as tgen
@@ -216,6 +218,32 @@ def test_plan_batch_not_ported():
     key = tplan.plan_batch(tg, ti, tb, bucketed=True).cache_key
     assert key == jplan.plan_batch(jg, ji, jb, bucketed=True).cache_key
     assert "ccx4b" in key
+
+
+@pytest.mark.parametrize("member", ["n_buckets", "scan", "index", "hybrid"])
+def test_public_members_identical(member):
+    """``Histogram2D.n_buckets`` of built and stacked histograms, and
+    ``AccessPlan.view_budget`` of each method's plans, equal the JAX
+    package's."""
+    jg, tg, ji, ti = _pair("power_law", 11)
+    if member == "n_buckets":
+        ts, te = np.asarray(jg.t_start), np.asarray(jg.t_end)
+        for nb in (1, 7, 100):
+            j, t = jhist.build_histogram(ts, te, nb), thist.build_histogram(ts, te, nb)
+            assert t.n_buckets == j.n_buckets == nb
+            j2 = jhist.stack_histograms([j, j])
+            assert thist.stack_histograms([t, t]).n_buckets == j2.n_buckets == nb
+        return
+    budgets = set()
+    for w in _windows(jg):
+        jp = jplan.plan_query(jg, ji, w, access=member)
+        tp = tplan.plan_query(tg, ti, w, access=member)
+        assert tp.method == jp.method
+        assert tp.view_budget == jp.view_budget
+        if tp.method == member:
+            budgets.add(tp.view_budget)
+    # a wide window's index plan falls back to a scan, whose budget is 0
+    assert len(budgets) > (member != "scan")
 
 
 @pytest.mark.parametrize("kind", ["power_law", "transit"])

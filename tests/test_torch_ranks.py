@@ -416,7 +416,26 @@ def elastic_resume(rank, ckpt, n_surviving, model_parallel, n_steps):
             "state_step": state["step"], "params": _full_params(params)}
 
 
-SHARDED_STEP_CASES = ("qwen3-moe-30b-a3b", "mistral-large-123b", "gcn-cora", "mind")
+SHARDED_STEP_CASES = ("qwen3-moe-30b-a3b", "mistral-large-123b", "gcn-cora", "mind",
+                      "nequip")
+# NequIP's edges: an odd count, so the two "data" ranks hold uneven shards
+NEQUIP_ATOMS, NEQUIP_EDGES = 24, 161
+# the batch fields a case shards over "data" (the others stay plain)
+EDGE_FIELDS = {"nequip": ("src", "dst")}
+
+
+def _placed_batch(batch, mesh, edge_fields):
+    """``batch`` with ``edge_fields`` sharded along axis 0 over ``"data"``
+    (unevenly where the count does not divide) and the other fields
+    replicated on ``mesh``; a plain copy with no mesh or no edge fields."""
+    if mesh is None or not edge_fields:
+        return dict(batch)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    edges = [Shard(0) if n == "data" else Replicate() for n in mesh.mesh_dim_names]
+    return {k: distribute_tensor(v, mesh, edges if k in edge_fields
+                                 else [Replicate()] * mesh.ndim)
+            for k, v in batch.items()}
 
 
 def _case(arch, mesh):
@@ -425,8 +444,9 @@ def _case(arch, mesh):
     DTensors by their logical axes when ``mesh`` is given."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed.sharding import distribute_tree
-    from repro_torch.models import gnn, mind
+    from repro_torch.models import gnn, mind, nequip
     from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
 
     fam = get_arch(arch)
     rng = np.random.default_rng(0)
@@ -442,7 +462,25 @@ def _case(arch, mesh):
             return model.params, lambda p, b: tf.loss_fn(model, b)
 
         return build, fam.optimizer(), {"tokens": toks, "labels": toks}, fam.rules_override
-    if fam.family == "gnn":
+    if arch == "nequip":
+        cfg = fam.smoke_cfg()
+        N, E = NEQUIP_ATOMS, NEQUIP_EDGES
+        batch = {"species": torch.as_tensor(rng.integers(0, 4, N)),
+                 "pos": torch.as_tensor(rng.uniform(-1.5, 1.5, (N, 3)), dtype=torch.float32),
+                 "src": torch.as_tensor(rng.integers(0, N, E)),
+                 "dst": torch.as_tensor(rng.integers(0, N, E)),
+                 "graph_id": torch.as_tensor(np.repeat([0, 1], N // 2)),
+                 "energy_target": torch.as_tensor(rng.standard_normal(2),
+                                                  dtype=torch.float32)}
+        init = lambda: nequip.init_nequip(cfg, gen(), "cpu")  # noqa: E731
+        axes = lambda p: tree_map(lambda t: (None,) * t.ndim, p)  # noqa: E731
+
+        def loss(p, b):
+            e = nequip.nequip_forward(p, {**b, "n_graphs": 2}, cfg)
+            return torch.mean((e - b["energy_target"]) ** 2), {}
+
+        opt = fam.train_objects("molecule")[0]
+    elif fam.family == "gnn":
         cfg = fam.smoke_cfg()
         N, E = 40, 160
         batch = {"x": torch.as_tensor(rng.standard_normal((N, 6)), dtype=torch.float32),
@@ -471,9 +509,9 @@ def _case(arch, mesh):
 def sharded_step_ranks(rank, mesh_shape, cases):
     """One train step of each case, unsharded and on ``mesh_shape``, from the
     same weights and batch: both metrics, both parameter lists and the
-    sharded leaves' placements."""
+    placements of the sharded parameters and batch fields."""
     from repro_torch.distributed import make_mesh
-    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.distributed.sharding import is_dtensor, use_mesh
     from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
     from repro_torch.tree import tree_leaves
 
@@ -486,12 +524,13 @@ def sharded_step_ranks(rank, mesh_shape, cases):
             params, loss = build(m)
             step = make_train_step(loss, opt, TrainConfig())
             state = init_train_state(params, opt, TrainConfig())
+            b = _placed_batch(batch, m, EDGE_FIELDS.get(arch, ()))
             with use_mesh(m, rules=rules):
-                params, state, metrics = step(params, state, dict(batch))
+                params, state, metrics = step(params, state, b)
+            placed = [t for t in tree_leaves(params) + list(b.values()) if is_dtensor(t)]
             got.append((float(metrics["loss"]), float(metrics["grad_norm"]),
                         [_np(p) for p in tree_leaves(_full_params(params))],
-                        sorted({str(tuple(map(str, p.placements)))
-                                for p in tree_leaves(params) if m is not None})))
+                        sorted({str(tuple(map(str, t.placements))) for t in placed})))
         (l0, g0, p0, _), (l1, g1, p1, pl) = got
         out[arch] = {"loss": (l0, l1), "grad_norm": (g0, g1), "params": (p0, p1),
                      "placements": pl}

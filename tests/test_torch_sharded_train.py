@@ -200,6 +200,9 @@ def test_one_sharded_step_equals_the_unsharded_step(one_step, arch):
     # something is sharded over each mesh axis
     placed = " ".join(res["placements"])
     assert "S(" in placed, res["placements"]
+    if arch == "nequip":
+        # the parameters replicated, as the reference's; the edges sharded
+        assert res["placements"] == ["('R', 'R')", "('S(0)', 'R')"], res["placements"]
     if arch == "mistral-large-123b":
         # TOKEN_SHARDED_RULES: fsdp over ("data", "model"), both axes on one dim
         assert any(p.count("S(1)") == 2 for p in res["placements"]), res["placements"]
