@@ -31,6 +31,9 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchSpec, Cell, register
 from repro_torch.device import resolve_device, to_numpy
 
+I32 = torch.int32
+F32 = torch.float32
+
 KAIROS_CELLS = {
     "ea_scan_1b": Cell(
         "ea_scan_1b", "analytics",
@@ -119,15 +122,15 @@ class KairosFamily(ArchSpec):
         meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")  # noqa: E731
         n_shards = ge.edge_mesh_axis(mesh).size
         per = -(-E // n_shards)
-        edges = [meta((per,), torch.int32) for _ in range(4)] + [meta((per,), torch.bool)]
-        window = torch.tensor([0, np.iinfo(np.int32).max - 1], dtype=torch.int32)
+        edges = [meta((per,), I32) for _ in range(4)] + [meta((per,), torch.bool)]
+        window = torch.tensor([0, np.iinfo(np.int32).max - 1], dtype=I32)
         if cell.name.startswith("ea"):
-            rows = ge.local_rows(mesh, meta((m["sources"], V), torch.int32)).clone()
+            rows = ge.local_rows(mesh, meta((m["sources"], V), I32)).clone()
             return ge.make_ea_round_plan(mesh, V, cell_plan(cell)), (rows, *edges, window)
         if cell.name.startswith("cc"):
-            return ge.make_cc_round(mesh, V), (meta((V,), torch.int32), *edges, window)
-        inv_deg = meta((V,), torch.float32)
-        return ge.make_pagerank_round(mesh, V), (meta((V,), torch.float32), *edges, inv_deg,
+            return ge.make_cc_round(mesh, V), (meta((V,), I32), *edges, window)
+        inv_deg = meta((V,), F32)
+        return ge.make_pagerank_round(mesh, V), (meta((V,), F32), *edges, inv_deg,
                                                  window)
 
     def model_flops(self, cell_name: str) -> float:
@@ -159,7 +162,7 @@ class KairosFamily(ArchSpec):
         sources = [0, 3]
         with one_rank_group(device):
             mesh = make_mesh((1, 1), ("data", "model"), device=device)
-            arr0 = torch.full((2, g.n_vertices), INT_INF, dtype=torch.int32, device=device)
+            arr0 = torch.full((2, g.n_vertices), INT_INF, dtype=I32, device=device)
             arr0[torch.arange(2), torch.tensor(sources)] = win[0]
             edges = ge.shard_edges(mesh, g.src, g.dst, g.t_start, g.t_end)
             evalid = ge.shard_edges(mesh, torch.ones(g.n_edges, dtype=torch.bool))[0]

@@ -47,6 +47,8 @@ from repro_torch.engine.frontier import (  # noqa: F401 (re-export)
 from repro_torch.engine.plan import AccessPlan, make_plan, per_vertex_window_budget, rung
 from repro_torch.kernels.temporal_edgemap import INT_INF
 
+FLOAT_INF = float("inf")
+
 
 class EdgeView(NamedTuple):
     """A (possibly gathered) set of candidate temporal edges."""
@@ -511,4 +513,5 @@ __all__ = [
     "ring_companion_delta",
     "ring_view_for_plan",
     "INT_INF",
+    "FLOAT_INF",
 ]

@@ -38,6 +38,9 @@ class CostModel:
     # safety factor on the estimated cardinality before rounding to a rung:
     # under-budgeting would drop edges, so over-provision.
     budget_slack: float = 1.25
+    # kept as the reference keeps it (nothing reads it), so that fields(),
+    # replace() and equality match
+    max_budget_rungs: int = 32
 
     def index_cost(self, n_edges: int, k: float) -> float:
         return self.c_index * (math.log2(max(n_edges, 2)) + k)

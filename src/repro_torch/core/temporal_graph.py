@@ -18,6 +18,9 @@ import torch
 
 from repro_torch.device import resolve_device, to_numpy
 
+INF_TIME = 2**31 - 1  # int32 max: "never" on the int32 time axis
+
+
 @dataclasses.dataclass(frozen=True)
 class TemporalGraph:
     """T-CSR temporal graph; every tensor lies on one device.

@@ -43,9 +43,9 @@ class TGERIndex:
     bucket_bounds: torch.Tensor    # i32[B+1] equi-depth start-time boundaries
     # -- host histograms (planner input) -------------------------------------
     global_hist: Histogram2D
-    vertex_hist: Histogram2D       # batched [H, nb+1, nb+1]
     # -- per-vertex selective index ------------------------------------------
     indexed_ids: torch.Tensor      # i32[H] vertex ids with a TGER slot (-1 placeholder)
+    vertex_hist: Histogram2D       # batched [H, nb+1, nb+1]
     vertex_to_slot: torch.Tensor   # i32[V]; -1 when the vertex is not indexed
     # -- heavy/light edge partition (hybrid edgemap) --------------------------
     light_eids: torch.Tensor       # i32[E_light] edges whose src is NOT indexed
@@ -127,8 +127,8 @@ def build_tger(
         start_sorted=dev(start_sorted),
         bucket_bounds=dev(bucket_bounds),
         global_hist=global_hist,
-        vertex_hist=vertex_hist,
         indexed_ids=dev(indexed_arr),
+        vertex_hist=vertex_hist,
         vertex_to_slot=dev(vertex_to_slot),
         light_eids=dev(light_eids),
         heavy_perm_by_start=dev(heavy_perm),

@@ -60,6 +60,7 @@ class FixpointRunner:
         plan: AccessPlan,
         n_vertices: int,
         direction: str = "out",
+        check_window: bool = True,
         max_rounds: int = 0,
     ):
         if (window is None) == (windows is None):
@@ -88,15 +89,19 @@ class FixpointRunner:
             Q = self.windows.shape[0]
             self.sources = (None if sources is None else torch.as_tensor(
                 sources, device=self.device).long().reshape(-1).expand(Q))
-            self.valid = edges.mask[None, :] & in_window(
-                edges.t_start[None, :], edges.t_end[None, :],
-                self.windows[:, 0:1], self.windows[:, 1:2])      # [Q, E']
+            if check_window:
+                self.valid = edges.mask[None, :] & in_window(
+                    edges.t_start[None, :], edges.t_end[None, :],
+                    self.windows[:, 0:1], self.windows[:, 1:2])  # [Q, E']
+            else:
+                self.valid = edges.mask[None, :].expand(Q, -1).contiguous()
         else:
             self.window = (int(window[0]), int(window[1]))
             self.windows = None
             self.sources = None
-            self.valid = edges.mask & in_window(
-                edges.t_start, edges.t_end, *self.window)        # [E']
+            self.valid = (edges.mask & in_window(
+                edges.t_start, edges.t_end, *self.window)
+                if check_window else edges.mask)                 # [E']
 
     def hoisted(self, key, build: Callable[[], Any]):
         """``build()`` once per runner, cached under ``key``: the
@@ -111,7 +116,7 @@ class FixpointRunner:
 
     @classmethod
     def for_query(cls, g, tger, window, *, plan: Optional[AccessPlan] = None,
-                  direction: str = "out",
+                  direction: str = "out", check_window: bool = True,
                   max_rounds: int = 0) -> "FixpointRunner":
         """Single-window runner: one plan-directed view build per query."""
         from repro_torch.core.edgemap import ensure_plan, view_for_plan
@@ -119,11 +124,13 @@ class FixpointRunner:
         plan = ensure_plan(plan)
         edges = view_for_plan(g, tger, window, plan)
         return cls(edges, window, plan=plan, n_vertices=g.n_vertices,
-                   direction=direction, max_rounds=max_rounds)
+                   direction=direction, check_window=check_window,
+                   max_rounds=max_rounds)
 
     @classmethod
     def for_windows(cls, g, tger, windows, *, sources=None,
                     plan: Optional[AccessPlan] = None, direction: str = "out",
+                    check_window: bool = True,
                     max_rounds: int = 0) -> "FixpointRunner":
         """Batched runner: one union-window view serves all Q rows."""
         from repro_torch.core.edgemap import ensure_plan, union_window, view_for_plan
@@ -132,16 +139,17 @@ class FixpointRunner:
         edges = view_for_plan(g, tger, union_window(windows), plan)
         return cls(edges, windows=windows, sources=sources, plan=plan,
                    n_vertices=g.n_vertices, direction=direction,
-                   max_rounds=max_rounds)
+                   check_window=check_window, max_rounds=max_rounds)
 
     @classmethod
     def for_view(cls, edges, window=None, *, windows=None, sources=None,
                  plan: AccessPlan, n_vertices: int, direction: str = "out",
+                 check_window: bool = True,
                  max_rounds: int = 0) -> "FixpointRunner":
         """Wrap an externally built view."""
         return cls(edges, window, windows=windows, sources=sources, plan=plan,
                    n_vertices=n_vertices, direction=direction,
-                   max_rounds=max_rounds)
+                   check_window=check_window, max_rounds=max_rounds)
 
     # -- per-row source seeding --------------------------------------------
 

@@ -50,6 +50,9 @@ class AccessPlan:
     backend: str                     # xla_segment | pallas_tiled
     budget: int                      # global gather budget (index)
     per_vertex_budget: int           # hybrid heavy-vertex budget
+    # Distributed engine: the top-K wire budget of the frontier-sparse
+    # exchange (0 = one dense min-reduce of the state per round).
+    exchange_budget: int
     tile_v: int
     block_e: int
     n_tiles: int
@@ -58,6 +61,12 @@ class AccessPlan:
     n_windows: int = 0               # batched sweep width (0 = single window)
     ring_capacity: int = 0           # ring-view slot count (0 = derive)
     batch_sig: str = ""              # QueryBatch shape signature ("" = not a batch plan)
+    # The mesh dimension the edge axis of every view under this plan is
+    # sharded over (a ``repro_torch.distributed.MeshAxis``: its name and
+    # process group), or None.  Set only inside an edge-sharded solve
+    # (``dataclasses.replace``): every combine then takes the segment path
+    # and ends with one collective over this dimension.
+    edge_axis: Any = None
     # History tier of the planned window against a ColdStore's hot horizon:
     # "hot" (the ring serves it), "cold" (entirely below the horizon,
     # stitched from compacted chunks) or "split" (cold prefix + hot suffix
@@ -70,15 +79,6 @@ class AccessPlan:
     # solves under such a plan descend to frontier-proportional rounds; the
     # batched entry points, ``sweep`` and a serving advance stay dense.
     ladder: int = 0
-    # Distributed engine: the top-K wire budget of the frontier-sparse
-    # exchange (0 = one dense min-reduce of the state per round).
-    exchange_budget: int = 0
-    # The mesh dimension the edge axis of every view under this plan is
-    # sharded over (a ``repro_torch.distributed.MeshAxis``: its name and
-    # process group), or None.  Set only inside an edge-sharded solve
-    # (``dataclasses.replace``): every combine then takes the segment path
-    # and ends with one collective over this dimension.
-    edge_axis: Any = None
 
     @property
     def view_budget(self) -> int:
@@ -123,6 +123,7 @@ def make_plan(
     block_e: int = DEFAULT_BLOCK_E,
     n_windows: int = 0,
     ring_capacity: int = 0,
+    batch_sig: str = "",
     tier: str = "hot",
     ladder: int = 0,
 ) -> AccessPlan:
@@ -155,19 +156,20 @@ def make_plan(
         backend=backend,
         budget=int(budget),
         per_vertex_budget=int(per_vertex_budget),
+        exchange_budget=int(exchange_budget),
         tile_v=int(tile_v),
         block_e=int(block_e),
         n_tiles=int(n_tiles),
         n_edges=int(n_edges),
         cache_key=_cache_key(method, backend, int(budget), int(per_vertex_budget),
                              int(exchange_budget), int(tile_v), int(block_e),
-                             int(n_windows), int(ring_capacity), tier=str(tier),
-                             ladder=int(ladder)),
+                             int(n_windows), int(ring_capacity), str(batch_sig),
+                             tier=str(tier), ladder=int(ladder)),
         n_windows=int(n_windows),
         ring_capacity=int(ring_capacity),
+        batch_sig=str(batch_sig),
         tier=str(tier),
         ladder=int(ladder),
-        exchange_budget=int(exchange_budget),
     )
 
 

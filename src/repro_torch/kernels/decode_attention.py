@@ -34,6 +34,10 @@ from repro_torch.kernels import build
 MIN_CHUNK = 64
 MAX_SPLIT = 32
 MAX_GROUP = 8           # the kernel is instantiated for G = 1..8
+# the Pallas kernel's masking score, exported as the reference exports it;
+# K4 and its plain version mask with -inf and give a row with no valid
+# position zeros (see above)
+NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

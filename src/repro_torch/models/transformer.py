@@ -467,19 +467,20 @@ def _serving(fn):
     return run
 
 
-def init_cache(cfg: LMConfig, batch: int, max_seq: int, device=None):
-    """Zero K/V caches in the model's dtype, each [L, batch, max_seq, KH, Dh],
-    on ``device`` (the first CUDA card unless given).  Under ``use_mesh`` of
-    a ``DeviceMesh`` they are DTensors placed by ``cache_axes``, each rank
-    holding its shard."""
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None, device=None):
+    """Zero K/V caches in ``dtype`` (the model's unless given), each
+    [L, batch, max_seq, KH, Dh], on ``device`` (the first CUDA card unless
+    given).  Under ``use_mesh`` of a ``DeviceMesh`` they are DTensors placed
+    by ``cache_axes``, each rank holding its shard."""
+    dtype = dtype or cfg.dtype
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     device = resolve_device(device)
     mesh = current_mesh()
     if mesh is not None and not isinstance(mesh, Mapping):
-        return {k: zeros_placed(shape, ax, mesh, cfg.dtype, device)
+        return {k: zeros_placed(shape, ax, mesh, dtype, device)
                 for k, ax in cache_axes().items()}
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def cache_axes():

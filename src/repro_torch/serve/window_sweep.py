@@ -488,13 +488,15 @@ class SweepState:
     n_solved: int = 0
     warm_applied: bool = False   # an explicit warm_start= actually seeded rows
     last_rounds: Any = None      # EA groups' round counts (host ints)
+    mesh: Any = None             # serving DeviceMesh of a sharded stream
     n_solved_unique: int = 0     # rows that ran a fixpoint after dedup
-    consumed: bool = False       # a later advance took this state's buffers
     group_caps: tuple = ()       # per-group BUCKETED row capacity (empty =
                                  # exact-shape schedule mode)
     last_schedule: Any = None    # schedule of the last fused advance (None
                                  # after cold/noop/reorder)
-    mesh: Any = None             # serving DeviceMesh of a sharded stream
+    # The port's own field, after all of the reference's: a later advance
+    # took this state's buffers.
+    consumed: bool = False
 
     @property
     def algorithm(self) -> str:

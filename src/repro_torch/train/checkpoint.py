@@ -132,7 +132,7 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: Optional[int] = None, device=None, shardings=None):
+    def restore(self, template, step: Optional[int] = None, shardings=None, device=None):
         """Restore into the structure of ``template`` (values ignored): a
         tensor leaf comes back as a tensor on ``device`` (by default the
         template leaf's device) in the file's dtype, an int leaf as an int.

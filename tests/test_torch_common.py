@@ -83,6 +83,45 @@ def assert_fields_equal(ref, port, names=None):
             assert a == b, (name, a, b)
 
 
+def _field_values(x):
+    """A dataclass as the tuple of its field values, nested ones too, as
+    ``dataclasses.astuple`` makes it."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return tuple(_field_values(getattr(x, f.name)) for f in dataclasses.fields(x))
+    if isinstance(x, (tuple, list)):
+        return tuple(map(_field_values, x))
+    return x
+
+
+def _assert_values_equal(want, got, where):
+    if isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want), where
+        for i, (a, b) in enumerate(zip(want, got)):
+            _assert_values_equal(a, b, f"{where}[{i}]")
+    elif want is None or isinstance(want, str):
+        assert got == want, (where, want, got)
+    else:
+        a, b = as_np(want), as_np(got)
+        assert a.shape == b.shape, where
+        if np.issubdtype(a.dtype, np.floating):
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-7, err_msg=where)
+        else:
+            assert (a == b).all(), where
+
+
+def assert_astuple_in_reference_order(ref, port):
+    """``dataclasses.astuple(port)`` begins with the reference's fields in
+    the reference's ``fields()`` order, each value equal to the reference's
+    (integers exactly, floats within rtol 1e-5 / atol 1e-7); the port may
+    add fields after them."""
+    names = [f.name for f in dataclasses.fields(ref)]
+    assert [f.name for f in dataclasses.fields(port)][:len(names)] == names
+    got = dataclasses.astuple(port)[:len(names)]
+    want = _field_values(tuple(getattr(ref, n) for n in names))
+    for name, a, b in zip(names, want, tuple(map(_field_values, got))):
+        _assert_values_equal(a, b, name)
+
+
 def graph_pair(kind, cutoff=48):
     """Both packages' generated graph of ``kind`` (see GRAPHS) and their TGER
     indexes: (jax graph, port graph, jax index, port index)."""

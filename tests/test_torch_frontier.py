@@ -57,7 +57,7 @@ from repro_torch.core.algorithms import reachability as treach
 from repro_torch.core.predicates import OrderingPredicateType as TT
 from repro_torch.engine.fixpoint import FixpointRunner
 from repro_torch.engine.queries import QueryBatch, QuerySpec
-from test_torch_common import CPU, as_np
+from test_torch_common import CELLS, CPU, as_np
 
 T_MAX = 1000
 TOL = dict(rtol=1e-5, atol=1e-7)
@@ -612,3 +612,58 @@ def test_frontier_trace_matches_host_oracle_and_jax(max_rounds):
     _assert_close(np.asarray(j_arr), arr)
     _, plain = tpaths.earliest_arrival(tg, source, window, ti, with_metrics=True)
     assert plain.frontier_trace is None and plain.rounds == metrics.rounds
+
+
+# ---------------------------------------------------------------------------
+# 6. a runner without the window check
+# ---------------------------------------------------------------------------
+
+def _ea_loop(runner, relax, init, minimum):
+    """EA rounds over a runner's ``valid``, written once for both packages."""
+    def body(state, rnd):
+        arrival, frontier = state
+        cand, _ = runner.step(frontier, arrival, relax, "min")
+        new = minimum(arrival, cand)
+        return new, new < arrival
+
+    return runner.run(lambda state: state[1].any(), body, init)[0]
+
+
+@pytest.mark.parametrize("mode", ["single", "batched"])
+@pytest.mark.parametrize("access,backend", CELLS)
+def test_runner_without_window_check_matches_jax(access, backend, mode):
+    """``check_window=False``: ``valid`` is the view's mask (broadcast to
+    [Q, E'] in batched mode), and an EA solve over it equals the JAX
+    package's bit for bit."""
+    import jax.numpy as jnp
+
+    jg, tg, ji, ti = _graph(3)
+    V = tg.n_vertices
+    if mode == "single":
+        win, src = (150, 520), 5
+        jp = jplan.plan_query(jg, ji, win, access=access, backend=backend)
+        tp = tplan.plan_query(tg, ti, win, access=access, backend=backend)
+        jr = JRunner.for_query(jg, ji, win, plan=jp, check_window=False)
+        tr = FixpointRunner.for_query(tg, ti, win, plan=tp, check_window=False)
+        mask = as_np(tr.edges.mask)
+        j0 = (jnp.full(V, jem.INT_INF, jnp.int32).at[src].set(win[0]),
+              jem.frontier_from_sources(V, src))
+        arr0 = torch.full((V,), tem.INT_INF, dtype=torch.int32)
+        arr0[src] = win[0]
+        t0 = (arr0, tem.frontier_from_sources(V, src, device=CPU))
+    else:
+        jp = jplan.plan_query(jg, ji, windows=_WINDOWS, access=access, backend=backend)
+        tp = tplan.plan_query(tg, ti, windows=_WINDOWS, access=access, backend=backend)
+        jr = JRunner.for_windows(jg, ji, _WINDOWS, sources=_SRCS, plan=jp,
+                                 check_window=False)
+        tr = FixpointRunner.for_windows(tg, ti, _WINDOWS, sources=_SRCS, plan=tp,
+                                        check_window=False)
+        mask = np.broadcast_to(as_np(tr.edges.mask), (len(_WINDOWS), tr.edges.mask.shape[0]))
+        j0 = (jr.seeded(jem.INT_INF, jr.windows[:, 0]), jr.source_frontier())
+        t0 = (tr.seeded(tem.INT_INF, tr.windows[:, 0]), tr.source_frontier())
+    assert jp.cache_key == tp.cache_key
+    assert (np.asarray(jr.valid) == as_np(tr.valid)).all()
+    assert (as_np(tr.valid) == mask).all() and tr.valid.shape == mask.shape
+    j_arr = _ea_loop(jr, jpaths._ea_relax(JT.SUCCEEDS), j0, jnp.minimum)
+    t_arr = _ea_loop(tr, tpaths._ea_relax(TT.SUCCEEDS), t0, torch.minimum)
+    _assert_close(np.asarray(j_arr), t_arr)

@@ -14,7 +14,8 @@ import repro_torch.core.predicates as tpred
 import repro_torch.core.temporal_graph as ttg
 import repro_torch.core.tger as ttger
 import repro_torch.data.generators as tgen
-from test_torch_common import CPU, as_np, assert_fields_equal, both_graphs, random_edges
+from test_torch_common import (CPU, as_np, assert_astuple_in_reference_order,
+                               assert_fields_equal, both_graphs, random_edges)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -70,6 +71,17 @@ def test_build_tger_fields(cutoff, in_edges):
     ti = ttger.build_tger(tg, degree_cutoff=cutoff, index_in_edges=in_edges)
     assert_fields_equal(ji, ti)
     assert ti.perm_by_start.device.type == "cpu"
+
+
+@pytest.mark.parametrize("cutoff,in_edges", [(64, False), (32, True), (10**6, False)])
+def test_tger_astuple_in_reference_order(cutoff, in_edges):
+    """Positional views of the index (``astuple``) line up with the JAX
+    package's fields."""
+    jg = jgen.power_law_temporal_graph(200, 3000, seed=13)
+    tg = tgen.power_law_temporal_graph(200, 3000, seed=13, device=CPU)
+    assert_astuple_in_reference_order(
+        jtger.build_tger(jg, degree_cutoff=cutoff, index_in_edges=in_edges),
+        ttger.build_tger(tg, degree_cutoff=cutoff, index_in_edges=in_edges))
 
 
 def _graph_and_index(seed=12, cutoff=48):

@@ -306,6 +306,31 @@ def test_prefill_decode_match_forward(name):
     np.testing.assert_allclose(dl.numpy(), lg[:, 16].numpy(), rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("mesh", [False, True])
+@pytest.mark.parametrize("dtype", [None, "float32", "bfloat16"])
+def test_init_cache_dtype_matches_jax(dtype, mesh):
+    """``init_cache(cfg, batch, max_seq, dtype)`` on a bfloat16 config: the
+    JAX package's zeros in ``dtype`` (the config's when None), the dtype
+    taken in the reference's fourth position, with and without a mesh."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import is_dtensor, use_mesh
+
+    jcfg, tcfg = (dataclasses.replace(c, dtype=d) for c, d in
+                  zip(SMOKES["smollm"], (jnp.bfloat16, torch.bfloat16)))
+    want = jtf.init_cache(jcfg, 2, 24, None if dtype is None else getattr(jnp, dtype))
+    with test_torch_common.one_rank_group():
+        m = make_mesh((1, 1), ("data", "model"), device="cpu") if mesh else None
+        with use_mesh(m):
+            got = ttf.init_cache(tcfg, 2, 24, None if dtype is None else getattr(torch, dtype),
+                                 device="cpu")
+        for key in ("k", "v"):
+            assert is_dtensor(got[key]) == mesh
+            local = got[key].to_local() if mesh else got[key]
+            assert str(local.dtype) == "torch." + want[key].dtype.name
+            assert local.shape == want[key].shape
+            assert (local.float().numpy() == np.asarray(want[key], np.float32)).all()
+
+
 def test_tied_embeddings_have_no_lm_head():
     cfg = ttf.LMConfig(name="t", n_layers=1, d_model=16, n_heads=2, n_kv_heads=1,
                        d_ff=32, vocab=32, tie_embeddings=True, dtype=torch.float32,

@@ -18,7 +18,7 @@ import repro_torch.data.generators as tgen
 import repro_torch.engine.plan as tplan
 import repro_torch.engine.queries as tqueries
 import repro_torch.kernels.layout as tlayout
-from test_torch_common import CPU, as_np, assert_fields_equal
+from test_torch_common import CPU, as_np, assert_astuple_in_reference_order, assert_fields_equal
 
 
 def _pair(kind, seed):
@@ -244,6 +244,30 @@ def test_public_members_identical(member):
             budgets.add(tp.view_budget)
     # a wide window's index plan falls back to a scan, whose budget is 0
     assert len(budgets) > (member != "scan")
+
+
+@pytest.mark.parametrize("access", ["scan", "index", "hybrid"])
+@pytest.mark.parametrize("backend", ["xla_segment", "pallas_tiled"])
+def test_plan_astuple_in_reference_order(access, backend):
+    """Positional views of a plan (``astuple``) line up with the JAX
+    package's fields, a batch plan's and a direct ``make_plan``'s too."""
+    jg, tg, ji, ti = _pair("power_law", 5)
+    w = _windows(jg)[11]
+    assert_astuple_in_reference_order(
+        jplan.plan_query(jg, ji, w, access=access, backend=backend, exchange_budget=64),
+        tplan.plan_query(tg, ti, w, access=access, backend=backend, exchange_budget=64))
+    import repro.engine.queries as jqueries
+
+    jb = jqueries.QueryBatch.make([jqueries.QuerySpec.make("cc", w)] * 2)
+    tb = tqueries.QueryBatch.make([tqueries.QuerySpec.make("cc", w)] * 2)
+    assert_astuple_in_reference_order(
+        jplan.plan_batch(jg, ji, jb, access=access, backend=backend),
+        tplan.plan_batch(tg, ti, tb, access=access, backend=backend))
+    kw = dict(budget=256, per_vertex_budget=32, exchange_budget=16, n_windows=3,
+              ring_capacity=512, batch_sig="cc2", tier="split", ladder=8)
+    if backend == "xla_segment":
+        assert_astuple_in_reference_order(jplan.make_plan(access, backend, **kw),
+                                          tplan.make_plan(access, backend, **kw))
 
 
 @pytest.mark.parametrize("kind", ["power_law", "transit"])

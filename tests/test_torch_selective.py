@@ -4,6 +4,8 @@ paper §5, Eq. 1-3) against the JAX package's: the mirrors of
 the reference's bit for bit (``use_index`` and the float32 ``k_est``: both
 compute each vertex's SAT estimate one float32 operation at a time in the
 same order)."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -76,6 +78,20 @@ def test_cost_model_crossover():
     # beta under theta but modeled index cost exceeds the scan cost
     m_slow_index = CostModel(c_index=10.0, c_scan=1.0, theta_sel=0.15)
     assert m_slow_index.choose(E, k_est=E * 0.14) == "scan"
+
+
+@pytest.mark.parametrize("kw", [{}, dict(max_budget_rungs=8, budget_slack=2.0)])
+def test_cost_model_fields_equal_jax(kw):
+    """The cost model's fields, ``max_budget_rungs`` among them (32; read by
+    neither package), in the JAX package's order with its defaults;
+    ``replace`` and equality behave alike."""
+    j, t = jsel.CostModel(**kw), CostModel(**kw)
+    assert ([f.name for f in dataclasses.fields(t)]
+            == [f.name for f in dataclasses.fields(j)])
+    assert dataclasses.astuple(t) == dataclasses.astuple(j)
+    assert t.max_budget_rungs == j.max_budget_rungs == kw.get("max_budget_rungs", 32)
+    assert (dataclasses.replace(t, max_budget_rungs=4) == t) == (
+        dataclasses.replace(j, max_budget_rungs=4) == j)
 
 
 def test_calibration():

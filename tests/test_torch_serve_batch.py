@@ -12,6 +12,8 @@ What the reference asserts about its traces is not mirrored: the retrace
 pinning (``fused_trace_count``) and the donation warnings are mechanisms of
 ``jax.jit``; the port's advance is eager, and its ring is written in place
 (the consumed state raises when passed again)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +40,8 @@ from repro_torch.core.edgemap import union_window, view_for_plan
 from repro_torch.core.temporal_graph import from_edges
 from repro_torch.engine.plan import make_plan, plan_query
 from repro_torch.serve import serve_batch, sliding_windows, sweep, sweep_incremental
-from test_torch_common import as_np, assert_same, jgen, jtger, one_rank_group, tgen, ttger
+from test_torch_common import (as_np, assert_astuple_in_reference_order, assert_same, jgen,
+                               jtger, one_rank_group, tgen, ttger)
 
 MT_ADVANCES = 48
 SOAK_ADVANCES = 100
@@ -595,6 +598,25 @@ def test_consumed_state_is_moved_from(method):
     with pytest.raises(RuntimeError, match="consumed"):
         sweep_incremental(g, src, sliding_windows(base + 2 * stride, width, stride, W),
                           idx, state=state, access=method)
+
+
+@pytest.mark.parametrize("access", ["index", "hybrid", "scan"])
+def test_state_astuple_in_reference_order(access):
+    """Positional views of a serving state (``astuple``) line up with the
+    JAX engine's fields on the same stream, cold and after an advance; the
+    port's own ``consumed`` comes after them."""
+    jg, ji, g, idx, _, t_min, t_max = _case()
+    width = max((t_max - t_min) // 50, 4)
+    stride = max(width // 4, 1)
+    state = jstate = None
+    for base in (t_max - 30 * stride, t_max - 29 * stride):
+        _, state = serve_batch(g, _sixteen_query_batch(te, base, width, stride), idx,
+                               state=state, access=access)
+        _, jstate = jws.serve_batch(jg, _sixteen_query_batch(je, base, width, stride), ji,
+                                    state=jstate, access=access)
+        assert state.last_advance == jstate.last_advance
+        assert_astuple_in_reference_order(jstate, state)
+        assert [f.name for f in dataclasses.fields(state)][-1] == "consumed"
 
 
 def _widening_case():

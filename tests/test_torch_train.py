@@ -563,6 +563,30 @@ def _one_rank_mesh():
     return make_mesh((1, 1), ("data", "model"), device="cpu")
 
 
+@pytest.mark.parametrize("form", ["keyword", "positional"])
+def test_checkpoint_restore_takes_the_reference_positions(tmp_path, form):
+    """``restore(template, step, shardings)`` binds as the JAX package's:
+    the third positional is ``shardings`` (``device`` comes after it); the
+    step asked for, not the latest, comes back, with the JAX package's
+    values."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    trees = {s: {"w": torch.arange(12.0).reshape(4, 3) * s, "n": s} for s in (3, 5)}
+    for s, tree in trees.items():
+        CheckpointManager(str(tmp_path)).save(s, tree)
+    jgot, jstep = JCheckpointManager(str(tmp_path)).restore(
+        {"w": jnp.zeros((4, 3)), "n": 0}, 3, None)
+    with test_torch_common.one_rank_group():
+        mesh = _one_rank_mesh()
+        shardings = {"w": (mesh, [Replicate(), Shard(1)]), "n": None}
+        mgr = CheckpointManager(str(tmp_path))
+        got, step = (mgr.restore(trees[5], 3, shardings) if form == "positional"
+                     else mgr.restore(trees[5], step=3, shardings=shardings))
+    assert step == int(jstep) == 3 and got["n"] == int(jgot["n"]) == 3
+    assert isinstance(got["w"], DTensor) and got["w"].placements == (Replicate(), Shard(1))
+    np.testing.assert_array_equal(got["w"].to_local().numpy(), np.asarray(jgot["w"]))
+
+
 @pytest.mark.parametrize("kind", ["adamw", "adafactor", "sgd"])
 def test_sharded_state_takes_the_state_axes_placements(kind):
     """The optimizer state of DTensor parameters is built with the
