@@ -1,0 +1,23 @@
+"""Device extent of a distributed EA round's convergence test, ms: the mean
+over the traced window's ``fixpoint.converge`` spans of the port's
+``repro_torch.obs`` (a pair of CUDA events on the stream around the
+``torch.equal`` of the new and old state, the flag's all-reduce over the
+world and its read on the host).  The spans record only under the profiler,
+so the last ``queries`` ``ea.query`` roots are the traced window's.
+Nothing from a port without spans."""
+
+
+def read(run):
+    n = int(run.traced_counts.get("queries", 0))
+    try:
+        from repro_torch import obs
+    except ImportError:
+        return None
+    spans = obs.records().spans
+    roots = [s for s in spans if s.parent < 0 and s.name == "ea.query"]
+    if not n or len(roots) < n:
+        return None
+    ids = {s.request for s in roots[-n:]}
+    ms = [s.device_ms for s in spans if s.request in ids and s.name == "fixpoint.converge"
+          and s.device_ms is not None]
+    return sum(ms) / len(ms) if ms else None

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.algorithms.paths import _earliest_arrival_over_view, bucket_bounds
 from repro_torch.core.edgemap import INT_INF, EdgeView, ensure_plan, union_window, view_for_plan
 from repro_torch.core.predicates import OrderingPredicateType, edge_follows
@@ -62,6 +63,7 @@ def _brandes_rows(edges, valid, windows, sources, t, n_buckets: int,
     order = torch.argsort(b, stable=True)
     f_dst, f_src, b = f_dst[order], f_src[order], b[order]
     off = torch.searchsorted(b, torch.arange(P + 1, device=dev)).tolist()
+    obs.count("host_reads")
     n_flat = Q * V
     not_source = torch.ones(n_flat, dtype=torch.bool, device=dev)
     not_source[rows * V + sources] = False

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.edgemap import EdgeView, ensure_plan, union_window, view_for_plan
 from repro_torch.core.temporal_graph import TemporalGraph
 from repro_torch.core.tger import TGERIndex
@@ -81,6 +82,7 @@ def temporal_pagerank_over_view(
         agg, _ = runner.step(None, (pr, inv_deg), _pagerank_relax, "sum")
         dangling_mass = torch.where(dangling, pr, 0.0).sum(dim=1, keepdim=True) / V
         pr = (1.0 - damping) / V + damping * (agg + dangling_mass)
+        obs.count("fixpoint.rounds")
     return pr
 
 

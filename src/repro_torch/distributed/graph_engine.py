@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.distributed.collectives import (
     MeshAxis,
     all_gather,
@@ -325,7 +326,11 @@ def run_distributed_ea(
     ``with_rounds``).  Each rank relaxes its source rows; the loop stops
     when no rank's rows changed, a flag min-reduced over the WORLD every
     round, so every rank runs the same rounds (the JAX loop's test on the
-    whole [S, V]) and reaches the final gather together.
+    whole [S, V]) and reaches the final gather together.  Under a profiler
+    session the query records the spans ``ea.query`` (the root),
+    ``fixpoint.round`` (each round, with its device extent) holding
+    ``fixpoint.relax`` and ``fixpoint.converge`` (the compare, the flag's
+    all-reduce and its read), and ``ea.gather`` (:mod:`repro_torch.obs`).
 
     A plan with ``budget > 0`` binary-searches each shard, which is correct
     only on per-shard t_start-sorted edges; the caller asserts that with
@@ -334,21 +339,29 @@ def run_distributed_ea(
         raise ValueError(
             "plan.budget > 0 requires per-shard t_start-sorted edges: pass "
             "sort_edges_by_time_per_shard(...) output and edges_time_sorted=True")
-    n_vertices = arrival0.shape[-1]
-    round_fn = make_ea_round_plan(mesh, n_vertices, plan, strict)
-    src, dst, ts, te = edge_arrays
-    arrival = local_rows(mesh, arrival0.to(mesh_device(mesh)))
-    world = world_axis()
-    rounds = 0
-    for _ in range(max_rounds):
-        new = round_fn(arrival, src, dst, ts, te, edge_valid, window)
-        rounds += 1
-        done = torch.tensor([int(torch.equal(new, arrival))], dtype=torch.int32,
-                            device=arrival.device)
-        arrival = new
-        if int(all_reduce(done, "min", world)[0]):
-            break
-    out = gather_rows(mesh, arrival)
+    with obs.span("ea.query"):
+        n_vertices = arrival0.shape[-1]
+        round_fn = make_ea_round_plan(mesh, n_vertices, plan, strict)
+        src, dst, ts, te = edge_arrays
+        arrival = local_rows(mesh, arrival0.to(mesh_device(mesh)))
+        world = world_axis()
+        rounds = 0
+        for _ in range(max_rounds):
+            with obs.span("fixpoint.round", stage=True):
+                with obs.span("fixpoint.relax"):
+                    new = round_fn(arrival, src, dst, ts, te, edge_valid, window)
+                rounds += 1
+                obs.count("fixpoint.rounds")
+                with obs.span("fixpoint.converge", stage=True):
+                    done = torch.tensor([int(torch.equal(new, arrival))],
+                                        dtype=torch.int32, device=arrival.device)
+                    arrival = new
+                    settled = int(all_reduce(done, "min", world)[0])
+                    obs.count("host_reads", 2)
+            if settled:
+                break
+        with obs.span("ea.gather"):
+            out = gather_rows(mesh, arrival)
     return (out, rounds) if with_rounds else out
 
 

@@ -21,6 +21,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.predicates import in_window
 from repro_torch.engine.backends import (
     combine_for_plan,
@@ -45,6 +46,12 @@ class FixpointMetrics(NamedTuple):
     rounds: int
     touched_total: int
     frontier_trace: Optional[torch.Tensor] = None
+
+
+def _read_cond(cond: Callable, state) -> bool:
+    """``bool(cond(state))``: the loop's host read of the device."""
+    obs.count("host_reads")
+    return bool(cond(state))
 
 
 class FixpointRunner:
@@ -223,9 +230,10 @@ class FixpointRunner:
         """``while round < max_rounds and cond(state): state = body(state,
         round)``; one host sync per round reads ``cond``."""
         rnd, state = 0, init
-        while rnd < self.max_rounds and bool(cond(state)):
+        while rnd < self.max_rounds and _read_cond(cond, state):
             state = body(state, rnd)
             rnd += 1
+            obs.count("fixpoint.rounds")
         return (state, rnd) if with_rounds else state
 
     def run_with_metrics(self, cond: Callable, body: Callable, init, *,
@@ -238,13 +246,15 @@ class FixpointRunner:
         touched_total = torch.zeros((), dtype=torch.int64, device=self.device)
         trace = (torch.full((self.max_rounds,), -1, dtype=torch.int32, device=self.device)
                  if frontier_trace else None)
-        while rnd < self.max_rounds and bool(cond(state)):
+        while rnd < self.max_rounds and _read_cond(cond, state):
             state, touched = body(state, rnd)
             occ = touched.sum()
             touched_total += occ
             if trace is not None:
                 trace[rnd] = occ
             rnd += 1
+            obs.count("fixpoint.rounds")
+        obs.count("host_reads", 1 if trace is None else 2)
         return state, FixpointMetrics(
             rounds=rnd, touched_total=int(touched_total),
             frontier_trace=None if trace is None else trace.cpu())

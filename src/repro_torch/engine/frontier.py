@@ -45,6 +45,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.hostcache import identity_cache
 from repro_torch.core.predicates import in_window
 from repro_torch.device import to_numpy
@@ -239,6 +240,7 @@ def _measures(spec: LadderSpec, state, deg: torch.Tensor) -> Tuple[int, int]:
     occ = f.sum(1).max()
     sumdeg = torch.where(f, deg, 0).sum(1).max()
     occ, sumdeg = torch.stack([occ, sumdeg]).tolist()
+    obs.count("host_reads")
     return occ, sumdeg
 
 
@@ -290,6 +292,7 @@ def run_laddered(
         while rnd < max_rounds and occ > 0 and not (sumdeg <= cutoff and occ <= cap):
             state = spec.dense_round(runner, state, rnd)
             rnd += 1
+            obs.count("fixpoint.rounds")
             occ, sumdeg = _measures(spec, state, deg)
         if segments is not None and rnd > start:
             segments.append(("dense", 0, 0, rnd - start))
@@ -311,6 +314,7 @@ def run_laddered(
                                  for c in companions)
                 state = spec.sparse_round(runner, gathered, state, rnd)
                 rnd += 1
+                obs.count("fixpoint.rounds")
                 occ, sumdeg = _measures(spec, state, deg)
             if segments is not None:
                 segments.append(("sparse", vrung, erung, rnd - start))

@@ -42,14 +42,13 @@ cold tier), bit-identical to a full-history index solve.
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.algorithms import (
     earliest_arrival,
     earliest_arrival_batched,
@@ -112,6 +111,7 @@ from repro_torch.engine.queries import (
     bucket_capacity,
     dedup_rows,
 )
+from repro_torch.obs import dispatch_log
 
 # the ring capacity at or below which ``sweep_incremental(tiny_budget_gate=
 # True)`` serves a chain cold: the reference's threshold, kept for parity
@@ -429,29 +429,14 @@ def sweep_looped(
 
 # Every device-work site of the incremental path notes a tag ("cold:view",
 # "cold:solve", "reorder", "warm-init", "fused:<method>") into each log
-# that ``dispatch_log`` opened; a steady-state advance notes exactly one
-# "fused:<method>", however many tenants the batch carries.
-_DISPATCH_LOG_VAR: "contextvars.ContextVar[tuple]" = contextvars.ContextVar(
-    "repro_torch_serve_dispatch_logs", default=())
-
-
-@contextlib.contextmanager
-def dispatch_log():
-    """Collect the dispatch-site tags of the enclosed calls: ``with
-    dispatch_log() as log: ...``.  Re-entrant: nested scopes stack and every
-    enclosing log receives the tags of its whole extent."""
-    log: list = []
-    token = _DISPATCH_LOG_VAR.set(_DISPATCH_LOG_VAR.get() + (log,))
-    try:
-        yield log
-    finally:
-        _DISPATCH_LOG_VAR.reset(token)
-
-
-def _note(tag: str) -> None:
-    for log in _DISPATCH_LOG_VAR.get():
-        log.append(tag)
-
+# that ``dispatch_log`` opened (``obs.note``); a steady-state advance notes
+# exactly one "fused:<method>", however many tenants the batch carries.
+# Under a profiler session an advance records the spans ``serve.advance``
+# (the root), ``serve.match``, ``serve.schedule``, ``serve.ring``,
+# ``serve.view``, ``serve.solve.<algorithm>`` (each group's) and
+# ``serve.assemble``.  The root, the ring write, the view and the solves
+# also record their device extent; matching and scheduling are host work,
+# and a CUDA event pair costs about 38 us on the host under the profiler.
 
 @dataclasses.dataclass
 class SweepState:
@@ -612,6 +597,7 @@ def _solve_rows_sharded(entry, params, plan, n_vertices, mesh, edges, windows,
         # read is one more host sync after the loop's own
         r = torch.tensor([rounds], dtype=torch.int32, device=subs[0].device)
         rounds = int(all_reduce(r, "max", row_ax)[0])
+        obs.count("host_reads")
     return (subs[0] if entry.n_outputs == 1 else subs), rounds
 
 
@@ -635,13 +621,14 @@ def _solve_groups(edges, plan, n_vertices, schedule, prev_results,
     With a ``mesh`` every group's solve row-shards over its query dimension
     (:func:`_solve_rows_sharded`)."""
 
-    def solve(entry, params, gi):
-        if mesh is not None:
-            return _solve_rows_sharded(entry, params, plan, n_vertices, mesh,
-                                       edges, new_windows[gi], new_sources[gi],
-                                       inits[gi])
-        return entry.solve(edges, new_windows[gi], new_sources[gi], plan,
-                           n_vertices, inits[gi], dict(params), False)
+    def solve(algorithm, entry, params, gi):
+        with obs.span(f"serve.solve.{algorithm}", stage=True):
+            if mesh is not None:
+                return _solve_rows_sharded(entry, params, plan, n_vertices, mesh,
+                                           edges, new_windows[gi], new_sources[gi],
+                                           inits[gi])
+            return entry.solve(edges, new_windows[gi], new_sources[gi], plan,
+                               n_vertices, inits[gi], dict(params), False)
 
     out, rounds_out = [], []
     for gi, entry_s in enumerate(schedule):
@@ -651,25 +638,28 @@ def _solve_groups(edges, plan, n_vertices, schedule, prev_results,
         if entry_s[2] == "bucket":
             prevs = prev if isinstance(prev, tuple) else (prev,)
             if entry_s[4]:
-                sub, rounds = solve(entry, params, gi)
+                sub, rounds = solve(algorithm, entry, params, gi)
                 subs = sub if isinstance(sub, tuple) else (sub,)
-                pool = subs if prev is None else tuple(
-                    torch.cat([p, s]) for p, s in zip(prevs, subs))
             else:
-                rounds, pool = -1, prevs
-            picked = tuple(p[maps[gi]] for p in pool)
+                rounds, subs = -1, None
+            with obs.span("serve.assemble"):
+                pool = prevs if subs is None else subs if prev is None else tuple(
+                    torch.cat([p, s]) for p, s in zip(prevs, subs))
+                picked = tuple(p[maps[gi]] for p in pool)
             out.append(picked[0] if entry.n_outputs == 1 else picked)
             rounds_out.append(rounds)
             continue
         row_map, new_pos, solve_map = entry_s[2], entry_s[3], entry_s[4]
         if new_pos:
-            sub, rounds = solve(entry, params, gi)
-            if solve_map is not None:
-                sub = _gather_solved(sub, solve_map, entry.n_outputs)
-            res = sub if prev is None else _assemble(
-                prev, sub, row_map, new_pos, entry.n_outputs)
+            sub, rounds = solve(algorithm, entry, params, gi)
+            with obs.span("serve.assemble"):
+                if solve_map is not None:
+                    sub = _gather_solved(sub, solve_map, entry.n_outputs)
+                res = sub if prev is None else _assemble(
+                    prev, sub, row_map, new_pos, entry.n_outputs)
         else:
-            res = _gather_rows(prev, row_map, entry.n_outputs)
+            with obs.span("serve.assemble"):
+                res = _gather_rows(prev, row_map, entry.n_outputs)
             rounds = -1
         out.append(res)
         rounds_out.append(rounds)
@@ -849,14 +839,16 @@ def _advance(
             # suffix) in index-ring slot order, so every solve below equals
             # a cold index build under the same plan; the carried hot ring
             # is never consumed
-            _note("cold:stitch")
-            capacity = p.ring_capacity or p.budget
-            fields_np, mask_np, lo, hi = coldstore.ring_stitch(union, capacity)
-            edges = EdgeView(*(torch.from_numpy(a).to(dev) for a in fields_np),
-                             torch.from_numpy(mask_np).to(dev))
+            with obs.span("serve.view", stage=True):
+                obs.note("cold:stitch")
+                capacity = p.ring_capacity or p.budget
+                fields_np, mask_np, lo, hi = coldstore.ring_stitch(union, capacity)
+                edges = EdgeView(*(torch.from_numpy(a).to(dev) for a in fields_np),
+                                 torch.from_numpy(mask_np).to(dev))
         else:
-            _note("cold:view")
-            edges, lo, hi, capacity = ring_view_for_plan(g, tger, union, p)
+            with obs.span("serve.view", stage=True):
+                obs.note("cold:view")
+                edges, lo, hi, capacity = ring_view_for_plan(g, tger, union, p)
             if coldstore is not None and p.method == "index" and lo > 0:
                 # everything below the fresh ring's low watermark is
                 # history: seal it (host work; the first note backfills
@@ -865,24 +857,27 @@ def _advance(
         if mesh is not None and p.method != "scan":
             # placed once at the cold build; the scan view aliases the
             # graph's own arrays and is never written
-            edges = _place_ring(edges, mesh)
+            with obs.span("serve.view", stage=True):
+                edges = _place_ring(edges, mesh)
         p_solve = _edge_plan(p, mesh)
         results, rounds, n_unique = [], [], 0
         for gi, (key, sources, wins) in enumerate(groups):
             entry = _ALGOS[key[0]]
-            _note("cold:solve")
+            obs.note("cold:solve")
             u_sources, u_windows, inverse = dedup_rows(sources, wins)
             n_unique += len(u_sources)
             src_dev = None if entry.source_free else _sources_tensor(u_sources, dev)
-            res, rnd = entry.solve(edges, u_windows, src_dev, p_solve, g.n_vertices,
-                                   None, dict(key[1]), ladder_eligible(p_solve))
+            with obs.span(f"serve.solve.{key[0]}", stage=True):
+                res, rnd = entry.solve(edges, u_windows, src_dev, p_solve, g.n_vertices,
+                                       None, dict(key[1]), ladder_eligible(p_solve))
             out_map = tuple(inverse)
             if bucketed:
                 # pad to the bucket capacity with the last real row (a pad
                 # row IS a real row; the daemon slices it off)
                 out_map += (out_map[-1],) * (caps[gi] - len(out_map))
             if out_map != tuple(range(len(u_sources))):
-                res = _gather_solved(res, out_map, entry.n_outputs)
+                with obs.span("serve.assemble"):
+                    res = _gather_solved(res, out_map, entry.n_outputs)
             results.append(res)
             rounds.append(rnd)
         return tuple(results), freeze(
@@ -894,16 +889,17 @@ def _advance(
     p = state.plan
 
     # ---- match rows against the previous advance's answered groups --------
-    prev_idx = {key: i for i, key in enumerate(state.group_keys)}
-    matched = []                # per group: list of prev-row idx | None
-    for key, sources, wins in groups:
-        pi = prev_idx.get(key)
-        if pi is None:
-            matched.append([None] * len(sources))
-        else:
-            matched.append(_match_rows(sources, wins, state.group_sources[pi],
-                                       state.group_windows[pi]))
-    total_new = sum(sum(m is None for m in ms) for ms in matched)
+    with obs.span("serve.match"):
+        prev_idx = {key: i for i, key in enumerate(state.group_keys)}
+        matched = []                # per group: list of prev-row idx | None
+        for key, sources, wins in groups:
+            pi = prev_idx.get(key)
+            if pi is None:
+                matched.append([None] * len(sources))
+            else:
+                matched.append(_match_rows(sources, wins, state.group_sources[pi],
+                                           state.group_windows[pi]))
+        total_new = sum(sum(m is None for m in ms) for ms in matched)
 
     if total_new == 0:
         # noop only when every group's rows are the FULL identity of the
@@ -919,14 +915,15 @@ def _advance(
                 n_solved_unique=0, last_schedule=None)
         # a permutation of answered rows (bucketed: padded back out to the
         # possibly hysteresis-shrunk bucket capacity)
-        _note("reorder")
+        obs.note("reorder")
         results = []
-        for gi, ((key, _, _), ms) in enumerate(zip(groups, matched)):
-            mm = tuple(ms)
-            if bucketed:
-                mm += (mm[-1],) * (caps[gi] - len(mm))
-            results.append(_gather_rows(state.results[prev_idx[key]], mm,
-                                        _ALGOS[key[0]].n_outputs))
+        with obs.span("serve.assemble"):
+            for gi, ((key, _, _), ms) in enumerate(zip(groups, matched)):
+                mm = tuple(ms)
+                if bucketed:
+                    mm += (mm[-1],) * (caps[gi] - len(mm))
+                results.append(_gather_rows(state.results[prev_idx[key]], mm,
+                                            _ALGOS[key[0]].n_outputs))
         results = tuple(results)
         return results, freeze(
             p, state.edges, state.lo, state.hi, state.capacity, results,
@@ -983,7 +980,7 @@ def _advance(
             schedule.append((key[0], key[1], row_map, tuple(new_idx), solve_map))
             prev_results.append(prev_res)
         if any_warm:
-            _note("warm-init")
+            obs.note("warm-init")
         return (tuple(schedule), tuple(prev_results), tuple(new_windows),
                 tuple(new_sources), tuple(inits), None, any_warm, n_unique)
 
@@ -1008,7 +1005,7 @@ def _advance(
                 needed = sorted({m for m in ms if m is not None}) or [0]
                 remap = {m: j for j, m in enumerate(needed)}
                 rm = tuple(needed) + (needed[-1],) * (cap - len(needed))
-                _note("rebucket")
+                obs.note("rebucket")
                 prev_res = _gather_rows(prev_res, rm, entry.n_outputs)
                 ms = [None if m is None else remap[m] for m in ms]
             new_idx = [i for i, m in enumerate(ms) if m is None]
@@ -1052,7 +1049,9 @@ def _advance(
         return (tuple(schedule), tuple(prev_results), tuple(new_windows),
                 tuple(new_sources), tuple(inits), tuple(maps), False, n_unique)
 
-    built = build_schedule_bucketed if bucketed else build_schedule
+    def built():
+        with obs.span("serve.schedule"):
+            return (build_schedule_bucketed if bucketed else build_schedule)()
     fields = (g.src, g.dst, g.t_start, g.t_end, g.weight)
     if mesh is not None:
         fields = replicated_arrays(mesh, *fields)
@@ -1062,7 +1061,7 @@ def _advance(
     if p.method == "scan":
         (schedule, prev_results, new_windows, new_sources, inits, maps,
          any_warm, n_unique) = built()
-        _note(f"fused:scan{shard_tag}")
+        obs.note(f"fused:scan{shard_tag}")
         state.consumed = True
         # the scan "ring" is the graph's own arrays: solved over, never written
         results, rounds = _solve_groups(state.edges, p, g.n_vertices, schedule,
@@ -1094,16 +1093,17 @@ def _advance(
             (perm,) = replicated_arrays(mesh, perm)
         (schedule, prev_results, new_windows, new_sources, inits, maps,
          any_warm, n_unique) = built()
-        _note(f"fused:{p.method}{shard_tag}")
+        obs.note(f"fused:{p.method}{shard_tag}")
         state.consumed = True
         # the entering positions are written into the carried ring in place
         # (on a 2-D mesh only by the rank that owns their slots)
-        if e_sh > 1:
-            edges = _advance_ring_sharded(mesh, fields, perm, state.edges,
-                                          state.lo, lo_new, hi_new, capacity=C)
-        else:
-            edges = _ADVANCE_RING[p.method](fields, perm, state.edges, state.lo,
-                                            lo_new, hi_new, capacity=C)
+        with obs.span("serve.ring", stage=True):
+            if e_sh > 1:
+                edges = _advance_ring_sharded(mesh, fields, perm, state.edges,
+                                              state.lo, lo_new, hi_new, capacity=C)
+            else:
+                edges = _ADVANCE_RING[p.method](fields, perm, state.edges, state.lo,
+                                                lo_new, hi_new, capacity=C)
         results, rounds = _solve_groups(edges, p, g.n_vertices, schedule,
                                         prev_results, new_windows, new_sources,
                                         inits, maps, mesh=mesh)
@@ -1314,14 +1314,15 @@ def serve_batch(
             order = None
         else:
             groups = [groups[i] for i in order]
-    results, new_state = _advance(
-        g, tger, groups, state, plan_arg=plan,
-        plan_builder=lambda: plan_batch(
-            g, tger, batch, access=access, backend=backend,
-            shards=None if mesh is None else mesh_shape(mesh),
-            bucketed=bucketed, tier=tier, ladder=int(ladder)),
-        warm_start=warm_start, mesh=mesh, bucketed=bucketed,
-        bucket_headroom=bucket_headroom, coldstore=coldstore, tier=tier)
+    with obs.span("serve.advance", stage=True):
+        results, new_state = _advance(
+            g, tger, groups, state, plan_arg=plan,
+            plan_builder=lambda: plan_batch(
+                g, tger, batch, access=access, backend=backend,
+                shards=None if mesh is None else mesh_shape(mesh),
+                bucketed=bucketed, tier=tier, ladder=int(ladder)),
+            warm_start=warm_start, mesh=mesh, bucketed=bucketed,
+            bucket_headroom=bucket_headroom, coldstore=coldstore, tier=tier)
     if order is not None:
         inv = [0] * len(order)
         for j, i in enumerate(order):
@@ -1410,15 +1411,16 @@ def sweep_incremental(
             # at tiny ring capacities the advance's fixed costs dominate:
             # a stateless cold solve under the pinned plan, no SweepState
             # (the gate fires again on every sweep of the chain)
-            _note("gate:tiny-budget")
-            _note("cold:gated")
+            obs.note("gate:tiny-budget")
+            obs.note("cold:gated")
             return entry.batched(g, src, windows, tger, p, kwargs), None
-    results, new_state = _advance(
-        g, tger, groups, state, plan_arg=plan,
-        plan_builder=lambda: plan_query(g, tger, windows=windows, access=access,
-                                        backend=backend, tier=tier,
-                                        ladder=int(ladder)),
-        warm_start=warm_start, coldstore=coldstore, tier=tier)
+    with obs.span("serve.advance", stage=True):
+        results, new_state = _advance(
+            g, tger, groups, state, plan_arg=plan,
+            plan_builder=lambda: plan_query(g, tger, windows=windows, access=access,
+                                            backend=backend, tier=tier,
+                                            ladder=int(ladder)),
+            warm_start=warm_start, coldstore=coldstore, tier=tier)
     return results[0], new_state
 
 

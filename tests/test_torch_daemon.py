@@ -25,6 +25,7 @@ import repro.engine as je
 import repro.launch.serve as jlaunch
 import repro.serve as jserve
 import repro.serve.window_sweep as jws
+from repro_torch import obs
 import repro_torch.engine as te
 import repro_torch.serve as tserve
 from repro_torch.engine import DEFAULT_COST_CLASS, bucket_capacity
@@ -337,13 +338,13 @@ def test_sticky_group_order_returns_results_in_batch_order():
 
 def test_dispatch_log_nested_scopes_both_observe():
     with ws.dispatch_log() as outer:
-        ws._note("a")
+        obs.note("a")
         with ws.dispatch_log() as inner:
-            ws._note("b")
-        ws._note("c")
+            obs.note("b")
+        obs.note("c")
     assert outer == ["a", "b", "c"]
     assert inner == ["b"]
-    ws._note("after")                       # no active scope: a no-op
+    obs.note("after")                       # no active scope: a no-op
     assert outer == ["a", "b", "c"]
 
 
